@@ -1,0 +1,752 @@
+"""The wavefront path-tracing integrator, forward render (the port of
+bhraytracer_tpu/models/pathtracer.py).
+
+A bounded-depth tree wavefront: level l is a flat batch of shade tasks;
+`_shade_level` traces them (kernel 1), runs the fused shade setup
+(kernel 3), the shadow trace (kernel 2), the compacted refraction/TIR chain
+(kernel 1 per trip) and the GI sample, and emits the next level's tasks. A
+backward sweep (`_combine_tree`) combines radiance bottom-up with the
+reference's per-stage clamp and early-out semantics (MtlBlinn.cpp:79-83,
+117-131).
+
+RNG is the JAX package's threefry chain, bit for bit (ops/rng.py): chunk
+key fold_in(fold_in(PRNGKey(seed), sample), start), raygen key
+fold_in(ck, 0), level key fold_in(fold_in(ck, 1), 100 + level), per-level
+uniforms fold_in(level_key, 1), chain key fold_in(level_key, 2).
+
+The device is the pack's: on the card every trace and shade setup is a
+hand-written CUDA kernel; on the CPU the same code runs their twins.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from bhraytracer_tpu_torch.config import RenderConfig
+from bhraytracer_tpu_torch.ops import rng
+from bhraytracer_tpu_torch.ops.camera import from_scene_camera, gen_rays
+from bhraytracer_tpu_torch.ops.compact import partition_indices
+from bhraytracer_tpu_torch.ops.linalg import (
+    BIG,
+    cross,
+    dot,
+    normalize,
+    safe_div,
+    safe_pow,
+    safe_sqrt,
+)
+from bhraytracer_tpu_torch.ops.sampling import (
+    crossing_vector,
+    sample_along_light_direction,
+    sample_along_normal,
+    sample_in_semisphere,
+)
+from bhraytracer_tpu_torch.ops.shade import check_supported, shade_setup
+from bhraytracer_tpu_torch.ops.texturing import sample_background, sample_environment
+from bhraytracer_tpu_torch.ops.trace import (
+    Surface,
+    check_traceable,
+    resolve_hit,
+    trace_closest,
+    trace_shadow,
+)
+
+NAN_PURPLE = (1.0, 0.0, 1.0)  # Color::NANPurple (cyColor.h:130)
+_MISS_O = (1.0e8, 1.0e8, 1.0e8)  # canonical miss ray for dead lanes
+_MISS_D = (0.0, 0.0, 1.0)
+
+_CASE_NONE = 0  # no refraction / budget exhausted -> black
+_CASE_FRONT = 1  # chain hit a front face: child Shade of that hit
+_CASE_OUT = 2  # exited the medium: child tinted by refraction * absorption
+_CASE_MISS = 3  # inner trace escaped the scene -> NANPurple sentinel
+
+
+class LevelRecord(NamedTuple):
+    """Per-task values saved at each tree level for the backward combine
+    (field docs: bhraytracer_tpu/models/pathtracer.py:96-136)."""
+
+    active: torch.Tensor  # (N,)
+    hit: torch.Tensor  # (N,)
+    z: torch.Tensor  # (N,)
+    direct: torch.Tensor  # (N,3)
+    gi_albedo: torch.Tensor  # (N,3)
+    gi_env: torch.Tensor  # (N,3)
+    refr_sel: torch.Tensor  # (K,) parent lane of each refraction slot
+    refr_valid: torch.Tensor  # (K,)
+    refr_has_child: torch.Tensor  # (K,)
+    refr_mult: torch.Tensor  # (K,3)
+    refr_absorb: torch.Tensor  # (K,3)
+    refr_env: torch.Tensor  # (K,3)
+    refr_add: torch.Tensor  # (K,3)
+    gi_sel: torch.Tensor  # (G,) parent lane of each GI slot
+    gi_valid: torch.Tensor  # (G,)
+    drop_refr: torch.Tensor  # () refraction candidates beyond capacity
+    drop_tir: torch.Tensor  # () TIR stragglers beyond the tail width
+    drop_gi: torch.Tensor  # () live GI lanes beyond capacity
+    # Active traced segments: live closest hits + issued shadow rays + live
+    # chain trips (the benchmark's unit of work).
+    segs: torch.Tensor  # ()
+
+
+class Tasks(NamedTuple):
+    o: torch.Tensor  # (N,3)
+    d: torch.Tensor  # (N,3)
+    active: torch.Tensor  # (N,) bool
+    bounce: torch.Tensor  # (N,) i32 remaining reflect/refract budget
+
+
+class ChunkStats(NamedTuple):
+    drop_refr: int
+    drop_tir: int
+    drop_gi: int
+    segments: int
+
+
+class Shading(NamedTuple):
+    """What a level needs from its shade step (pathtracer.py:707-774)."""
+
+    surf: Surface
+    direct: torch.Tensor  # (N,3) clamped direct-light term
+    n_shadow: torch.Tensor  # () lanes that issued a shadow query
+    refr_eff: torch.Tensor  # (N,3) Fresnel-weighted refraction colour
+    cos_phi1: torch.Tensor  # (N,)
+    gi_o: torch.Tensor  # (N,3) GI child ray
+    gi_d: torch.Tensor  # (N,3)
+    gi_albedo: torch.Tensor  # (N,3) lobe albedo multiplying the GI child
+    gi_env: torch.Tensor  # (N,3) contribution if the GI child misses
+
+
+class Mtl(NamedTuple):
+    diffuse: torch.Tensor
+    diffuse_tm: torch.Tensor
+    specular: torch.Tensor
+    specular_tm: torch.Tensor
+    gloss: torch.Tensor
+    refraction: torch.Tensor
+    refr_gloss: torch.Tensor
+    ior: torch.Tensor
+    absorption: torch.Tensor
+
+
+def _vec(v, like):
+    return torch.tensor(v, dtype=torch.float32, device=like.device)
+
+
+def _clamp_white(c):
+    """ClampColorToWhite (MtlBlinn.cpp:79-83)."""
+    return torch.clamp_max(c, 1.0)
+
+
+def _fetch_mtl(pack, mtl_id) -> Mtl:
+    i = mtl_id.clamp(0, pack.mtl_gloss.shape[0] - 1).long()
+    return Mtl(diffuse=pack.mtl_diffuse[i], diffuse_tm=pack.mtl_diffuse_tm[i],
+               specular=pack.mtl_specular[i],
+               specular_tm=pack.mtl_specular_tm[i], gloss=pack.mtl_gloss[i],
+               refraction=pack.mtl_refraction[i],
+               refr_gloss=pack.mtl_refr_gloss[i], ior=pack.mtl_ior[i],
+               absorption=pack.mtl_absorption[i])
+
+
+# ---------------------------------------------------------------------------
+# direct light and GI lobe, unfused (MtlBlinn.cpp:304-433)
+# ---------------------------------------------------------------------------
+
+
+def _select_light(pack, u):
+    """One-light selection: the first light (ascending-intensity order)
+    whose own share is >= u, else the last (MtlBlinn.cpp:309-315, no 1/pmf
+    compensation, as the reference)."""
+    gray = pack.light_intensity.sum(1) / 3.0
+    probs = gray / torch.clamp_min(gray.sum(), 1e-30)
+    ok = u[:, None] <= probs[None, :]
+    return torch.where(ok.any(1), ok.to(torch.int32).argmax(1),
+                       pack.light_kind.shape[0] - 1)
+
+
+def _sample_in_light(pack, lidx, surf: Surface, mtl: Mtl, new_spec_color, u):
+    """GetSampleInLight (MtlBlinn.cpp:637-695): the shading direction vL.
+    u: (N, >=5) uniform columns."""
+    kind, lvec, lsize = (pack.light_kind[lidx], pack.light_vec[lidx],
+                         pack.light_size[lidx])
+    kd = mtl.diffuse.amax(1)
+    ks = new_spec_color.amax(1)
+    vl_c = lvec - surf.p
+    d_vl, d_cos = sample_along_light_direction(normalize(vl_c), mtl.gloss,
+                                               u[:, 0], u[:, 1])
+    p_diffuse = safe_pow(d_cos, mtl.gloss)
+    r = u[:, 2]
+    big_r = torch.sqrt(r) * lsize
+    th = u[:, 3] * 2.0 * torch.pi
+    a1 = normalize(cross(crossing_vector(vl_c), vl_c))
+    a2 = normalize(cross(a1, vl_c))
+    s_vl = (vl_c + a1 * (big_r * torch.cos(th))[:, None]
+            + a2 * (big_r * torch.sin(th))[:, None])
+    p_specular = 2.0 * r / torch.clamp_min(big_r * big_r, 1e-30)
+    pd = kd * p_diffuse
+    pd_norm = safe_div(pd, pd + ks * p_specular)
+    use_spec = u[:, 4] >= pd_norm
+    use_spec = use_spec & ~((ks == 0) & (kd != 0)) | ((ks != 0) & (kd == 0))
+    vl_point = torch.where(use_spec[:, None], normalize(s_vl), normalize(d_vl))
+    # Non-point lights: -Direction(p) (ambient -> zero vector).
+    vl_other = torch.where((kind == 1)[:, None], -normalize(lvec), 0.0)
+    return torch.where((kind == 2)[:, None], vl_point, vl_other)
+
+
+def _illuminate(pack, cfg: RenderConfig, lidx, p, u, mask):
+    """Light::Illuminate with one shadow trace (lights.h:46-64,
+    PointLight.cpp:7-18). Returns (irradiance (N,3), lanes that issued a
+    real shadow query)."""
+    kind, lvec, lsize, intensity = (
+        pack.light_kind[lidx], pack.light_vec[lidx], pack.light_size[lidx],
+        pack.light_intensity[lidx])
+    center_dir = lvec - p
+    rr = dot(center_dir, center_dir)
+    sdir = sample_along_normal(center_dir, lsize, u[:, 0], u[:, 1])
+    sdir = torch.where((lsize > 0)[:, None], sdir, center_dir)
+    is_point, is_direct = kind == 2, kind == 1
+    cand = mask & (is_point | is_direct)
+    shadow_o = torch.where(cand[:, None], p, _vec(_MISS_O, p))
+    shadow_d = torch.where(cand[:, None],
+                           torch.where(is_point[:, None], sdir, -lvec),
+                           _vec(_MISS_D, p))
+    t_max = torch.where(cand, torch.where(is_point, 1.0, BIG), 0.0)
+    occ = trace_shadow(pack, shadow_o, shadow_d, t_max, cfg.shadow_bias,
+                       plane_extent_bug=cfg.parity_plane_shadow_bug)
+    vis = torch.where(occ & cand, 0.0, 1.0)[:, None]
+    irr_point = torch.where((rr == 0.0)[:, None], BIG,
+                            intensity * vis / torch.clamp_min(rr, 1e-30)[:, None])
+    irr = torch.where(is_point[:, None], irr_point,
+                      torch.where(is_direct[:, None], intensity * vis,
+                                  intensity))
+    return irr, cand.sum()
+
+
+def _direct_light(pack, cfg: RenderConfig, surf: Surface, mtl: Mtl,
+                  new_spec_color, vn, vv, u, mask):
+    """PathTracing_DiffuseNSpecular (MtlBlinn.cpp:304-351), untextured:
+    (clamped direct term (N,3), shadow queries)."""
+    lidx = _select_light(pack, u[:, 7])
+    vl = _sample_in_light(pack, lidx, surf, mtl, new_spec_color, u)
+    cos_theta = dot(vl, vn)
+    irrad, n_shadow = _illuminate(pack, cfg, lidx, surf.p, u[:, 5:7],
+                                  mask & (cos_theta > 0))
+    hn = torch.clamp_min(dot(normalize(vl + vv), vn), 0.0)
+    brdf_cos = (mtl.diffuse * cos_theta[:, None]
+                + new_spec_color * safe_pow(hn, mtl.gloss)[:, None])
+    out = torch.where((cos_theta > 0)[:, None], irrad * brdf_cos, 0.0)
+    out = _clamp_white(out)
+    # NaN in direct -> black (MtlBlinn.cpp:344-347).
+    return torch.where(torch.isnan(out[:, 0:1]), 0.0, out), n_shadow
+
+
+def _gi_env(pack, gi_d, albedo):
+    """The GI child's contribution if it misses, with the degenerate-
+    direction sentinel (MtlBlinn.cpp:411-423)."""
+    env, valid = sample_environment(pack, gi_d)
+    env_term = torch.where(valid[:, None], env * albedo, 0.0)
+    degen = (gi_d[:, 0] == gi_d[:, 1]) & (gi_d[:, 0] == 0.0)
+    return torch.where(degen[:, None], _vec(NAN_PURPLE, gi_d), env_term)
+
+
+def _gi_sample(pack, cfg: RenderConfig, surf: Surface, mtl: Mtl,
+               new_spec_color, vn, vv, u):
+    """PathTracing_GlobalIllumination's lobe (MtlBlinn.cpp:354-433),
+    untextured: (gi_o, gi_dir, albedo, env_term)."""
+    kd = mtl.diffuse.amax(1)
+    ks = new_spec_color.amax(1)
+    d_dir, p_dt = sample_in_semisphere(vn, u[:, 0], u[:, 1])
+    d_dir = normalize(d_dir)
+    vr = 2.0 * dot(vn, vv, keepdim=True) * vn - vv
+    s_dir, s_cos = sample_along_light_direction(vr, mtl.gloss, u[:, 2],
+                                                u[:, 3])
+    p_st = safe_pow(s_cos, mtl.gloss)
+    use_spec = u[:, 4] >= safe_div(kd * p_dt, kd * p_dt + ks * p_st)
+    gi_dir = torch.where(use_spec[:, None], s_dir, d_dir)  # spec unnormalised
+    albedo = torch.where(use_spec[:, None], new_spec_color, mtl.diffuse)
+    return (surf.p + vn * cfg.bias, gi_dir, albedo,
+            _gi_env(pack, gi_dir, albedo))
+
+
+# ---------------------------------------------------------------------------
+# the shade step of a level: fused kernel, or the functions above
+# ---------------------------------------------------------------------------
+
+
+def _shade_fused(pack, cfg: RenderConfig, o, d, hit, shade, u_tab) -> Shading:
+    """The fused shade setup (kernel 3 on the card, its twin on the CPU);
+    only the shadow trace and its visibility fold stay outside
+    (pathtracer.py:710-735). The main path's shade step."""
+    n = o.shape[0]
+    fo = shade_setup(pack, cfg, o, d, hit, shade, u_tab)
+    surf = Surface(p=fo.p, n=fo.n, uvw=o.new_zeros((n, 3)),
+                   duvw=o.new_zeros((n, 2, 3)), mtl=fo.mtl, z=fo.z,
+                   front=hit.front)
+    occ = trace_shadow(pack, fo.shadow_o, fo.shadow_d, fo.shadow_tmax,
+                       cfg.shadow_bias,
+                       plane_extent_bug=cfg.parity_plane_shadow_bug)
+    vis = torch.where(occ & fo.gate, 0.0, 1.0)
+    # The point-light r^2 == 0 branch keeps BIG whatever the visibility.
+    irr = fo.irr * torch.where(fo.rr0, 1.0, vis)[:, None]
+    direct = torch.where((fo.cos_theta > 0.0)[:, None], irr * fo.brdf_cos, 0.0)
+    direct = _clamp_white(direct)
+    direct = torch.where(torch.isnan(direct[:, 0:1]), 0.0, direct)
+    return Shading(surf=surf, direct=direct, n_shadow=fo.gate.sum(),
+                   refr_eff=fo.refr_eff, cos_phi1=fo.cos_phi1, gi_o=fo.gi_o,
+                   gi_d=fo.gi_d, gi_albedo=fo.gi_albedo,
+                   gi_env=_gi_env(pack, fo.gi_d, fo.gi_albedo))
+
+
+def _shade_unfused(pack, cfg: RenderConfig, o, d, hit, shade,
+                   u_tab) -> Shading:
+    """The same step from the separate functions (pathtracer.py:736-774,
+    847-849): the JAX package's XLA shading path. The main path takes the
+    fused kernel; this is the plain composition the tests hold it to, and
+    the path textured scenes will take (ROADMAP Queue 1, item 8)."""
+    surf = resolve_hit(pack, o, d, hit)
+    mtl = _fetch_mtl(pack, surf.mtl)
+    vn = surf.n
+    vv = normalize(o - surf.p)
+    cos_phi1 = torch.clamp(dot(vn, vv), 0.0, 1.0)
+    # Schlick Fresnel into the specular colour (MtlBlinn.cpp:107-114).
+    r0_base = (1.0 - mtl.ior) / (1.0 + mtl.ior)
+    r0 = r0_base * r0_base
+    fres = r0 + (1.0 - r0) * safe_pow(1.0 - cos_phi1, 5.0)
+    new_spec = _clamp_white(mtl.specular + fres[:, None] * mtl.refraction)
+    direct, n_shadow = _direct_light(pack, cfg, surf, mtl, new_spec, vn, vv,
+                                     u_tab[:, :8], shade)
+    gi_o, gi_d, gi_albedo, gi_env = _gi_sample(pack, cfg, surf, mtl, new_spec,
+                                               vn, vv, u_tab[:, 8:13])
+    return Shading(surf=surf, direct=direct, n_shadow=n_shadow,
+                   refr_eff=(1.0 - fres)[:, None] * mtl.refraction,
+                   cos_phi1=cos_phi1, gi_o=gi_o, gi_d=gi_d,
+                   gi_albedo=gi_albedo, gi_env=gi_env)
+
+
+# ---------------------------------------------------------------------------
+# refraction / TIR chain (MtlBlinn.cpp:437-589)
+# ---------------------------------------------------------------------------
+
+
+def _glossy_refr_dir(vt, vn, rgloss, key, tag: int, want_negative: bool,
+                     tries: int):
+    """Fixed-try rejection resampling of the refraction direction
+    (MtlBlinn.cpp:454-465, 560-572), falling back to the perfect one. Try k
+    draws its two uniforms from fold_in(key, tag + 2k) and
+    fold_in(key, tag + 2k + 1), all 2*tries streams in one call."""
+    n = vt.shape[0]
+    keys = rng.fold_in(key, tag + torch.arange(2 * tries, device=vt.device))
+    us = rng.uniform(keys, (n,))
+    chosen = normalize(vt)
+    found = torch.zeros(n, dtype=torch.bool, device=vt.device)
+    for k in range(tries):
+        cand, _ = sample_along_light_direction(vt, rgloss, us[2 * k],
+                                               us[2 * k + 1])
+        sign = dot(cand, vn)
+        ok = (sign < 0.0) if want_negative else (sign > 0.0)
+        chosen = torch.where((ok & ~found)[:, None], normalize(cand), chosen)
+        found = found | ok
+    return torch.where(((rgloss > 0.0) & found)[:, None], chosen,
+                       normalize(vt))
+
+
+def _refraction_chain(pack, cfg: RenderConfig, surf: Surface, mtl: Mtl, vn,
+                      vv, cos_phi1, refr_eff, active, bounce, key):
+    """The enter/TIR/exit chain in two stages: tir_head_trips full-width
+    trips, then the stragglers recompacted to 1/tir_tail_divisor width
+    (pathtracer.py:573-613). Returns (case, child_o, child_d, bounce_left,
+    dropped, segs)."""
+    n = surf.p.shape[0]
+    miss_o, miss_d = _vec(_MISS_O, vn), _vec(_MISS_D, vn)
+
+    # --- entry refraction direction (MtlBlinn.cpp:443-465) ---
+    sin1 = safe_sqrt(1.0 - cos_phi1 * cos_phi1)
+    sin2 = sin1 / torch.clamp_min(mtl.ior, 1e-6)
+    cos2 = safe_sqrt(1.0 - sin2 * sin2)
+    vtn = -cos2[:, None] * vn
+    vtp = normalize(cross(vn, cross(vn, vv))) * sin2[:, None]
+    # Effective refraction glossiness: the Blinn glossiness when > 50, else
+    # 0 (MtlBlinn.cpp:115-116).
+    rgloss = torch.where(mtl.gloss > 50.0, mtl.gloss, 0.0)
+    vt = _glossy_refr_dir(vtn + vtp, vn, rgloss, key, 20, True,
+                          cfg.refr_gloss_tries)
+    chain_active = active & (refr_eff != 0.0).any(1) & (bounce > 0)
+    trip_key = rng.fold_in(key, 40)
+
+    s = dict(p=surf.p, nrm=vn, d=vt, bounce=bounce, settled=~chain_active,
+             case=torch.zeros(n, dtype=torch.int32, device=vn.device),
+             out_o=surf.p.clone(), out_d=vt,
+             segs=torch.zeros((), dtype=torch.int64, device=vn.device))
+
+    def trip(s, it, ior, rgl):
+        live = ~s["settled"]
+        ray_o = torch.where(live[:, None], s["p"] - s["nrm"] * cfg.bias, miss_o)
+        ray_d = torch.where(live[:, None], s["d"], miss_d)
+        hit = trace_closest(pack, ray_o, ray_d, "both")
+        sres = resolve_hit(pack, ray_o, ray_d, hit)
+        miss = live & ~hit.hit
+        front_hit = live & hit.hit & hit.front
+        back_hit = live & hit.hit & ~hit.front
+        # back face: exit or TIR (HandleRayWhenRefractionRayOut :543-589)
+        vn2 = sres.n
+        vv2 = -normalize(ray_d)
+        c1 = dot(vv2, -vn2)
+        s2 = ior * safe_sqrt(1.0 - c1 * c1)
+        going_out = s2 <= 1.0
+        c2 = safe_sqrt(1.0 - s2 * s2)
+        vt2 = (vn2 * c2[:, None]
+               + normalize(cross(vn2, cross(vn2, vv2))) * s2[:, None])
+        vt2 = _glossy_refr_dir(vt2, vn2, rgl, rng.fold_in(trip_key, it), 0,
+                               False, cfg.refr_gloss_tries)
+        out_o = sres.p + vn2 * cfg.bias
+        vr = -2.0 * c1[:, None] * vn2 - vv2  # internal reflection (:582)
+        exhausted = s["bounce"] <= 0
+        exit_now = back_hit & going_out
+        tir = back_hit & ~going_out & ~exhausted
+        dead = back_hit & ~going_out & exhausted
+        case = torch.where(miss, _CASE_MISS, s["case"])
+        case = torch.where(front_hit, _CASE_FRONT, case)
+        case = torch.where(exit_now, _CASE_OUT, case)
+        case = torch.where(dead, _CASE_NONE, case).to(torch.int32)
+        fh, ex, tr = front_hit[:, None], exit_now[:, None], tir[:, None]
+        return dict(
+            p=torch.where(tr, sres.p, s["p"]),
+            nrm=torch.where(tr, vn2, s["nrm"]),
+            d=torch.where(tr, vr, s["d"]),
+            bounce=torch.where(tir, s["bounce"] - 1, s["bounce"]),
+            settled=s["settled"] | miss | front_hit | exit_now | dead,
+            case=case,
+            out_o=torch.where(fh, ray_o, torch.where(ex, out_o, s["out_o"])),
+            out_d=torch.where(fh, ray_d,
+                              torch.where(ex, normalize(vt2), s["out_d"])),
+            segs=s["segs"] + live.sum())
+
+    it = 0
+    head = min(cfg.tir_head_trips, cfg.tir_bounces + 1)
+    while it < head and bool((~s["settled"]).any()):
+        s = trip(s, it, mtl.ior, rgloss)
+        it += 1
+
+    k2 = max(128, -(-n // cfg.tir_tail_divisor) // 128 * 128)
+    dropped = torch.zeros((), dtype=torch.int64, device=vn.device)
+    if cfg.tir_tail_compaction and k2 < n:
+        unsettled = ~s["settled"]
+        sel = partition_indices(unsettled, k2)  # unsettled first
+        sel_valid = unsettled[sel]
+        sub = {k: s[k][sel] for k in
+               ("p", "nrm", "d", "bounce", "case", "out_o", "out_d")}
+        sub["settled"] = ~sel_valid
+        sub["segs"] = s["segs"]
+        ior_k, rgl_k = mtl.ior[sel], rgloss[sel]
+        while bool((~sub["settled"]).any()):
+            sub = trip(sub, it, ior_k, rgl_k)
+            it += 1
+        for k in ("case", "bounce"):
+            s[k][sel] = torch.where(sel_valid, sub[k], s[k][sel])
+        for k in ("out_o", "out_d"):
+            s[k][sel] = torch.where(sel_valid[:, None], sub[k], s[k][sel])
+        # Unsettled lanes that did not fit keep case NONE -> black: counted.
+        dropped = unsettled.sum() - sel_valid.sum()
+        segs = sub["segs"]
+    else:
+        while bool((~s["settled"]).any()):
+            s = trip(s, it, mtl.ior, rgloss)
+            it += 1
+        segs = s["segs"]
+    return s["case"], s["out_o"], s["out_d"], s["bounce"], dropped, segs
+
+
+# ---------------------------------------------------------------------------
+# one tree level
+# ---------------------------------------------------------------------------
+
+
+def _shade_level(pack, cfg: RenderConfig, tasks: Tasks, level: int, key):
+    n = tasks.o.shape[0]
+    act = tasks.active[:, None]
+    o = torch.where(act, tasks.o, _vec(_MISS_O, tasks.o))
+    d = torch.where(act, tasks.d, _vec(_MISS_D, tasks.o))
+
+    hit = trace_closest(pack, o, d, "front")
+    shade = tasks.active & hit.hit
+    u_tab = rng.uniform(rng.fold_in(key, 1), (n, 13))
+    sh = _shade_fused(pack, cfg, o, d, hit, shade, u_tab)
+    surf = sh.surf
+
+    # --- refraction chain on compacted refractive lanes ---
+    chain_cand = shade & (sh.refr_eff != 0.0).any(1) & (tasks.bounce > 0)
+    sel = partition_indices(chain_cand, cfg.refr_cap(n))  # candidates first
+    sel_valid = chain_cand[sel]
+    surf_k = Surface(*[f[sel] for f in surf])
+    mtl_k = _fetch_mtl(pack, surf_k.mtl)
+    refr_eff_k = sh.refr_eff[sel]
+    case, ro, rd, bounce_left, drop_tir, chain_segs = _refraction_chain(
+        pack, cfg, surf_k, mtl_k, surf.n[sel], normalize(o[sel] - surf_k.p),
+        sh.cos_phi1[sel], refr_eff_k, sel_valid, tasks.bounce[sel],
+        rng.fold_in(key, 2))
+    drop_refr = chain_cand.sum() - sel_valid.sum()
+    segs = tasks.active.sum() + sh.n_shadow + chain_segs
+    refr_has_child = ((case == _CASE_FRONT) | (case == _CASE_OUT)) & sel_valid
+    is_out = (case == _CASE_OUT)[:, None]
+    refr_mult = torch.where(is_out, refr_eff_k, 1.0)
+    refr_absorb = torch.where(is_out, mtl_k.absorption, 0.0)
+    env_r, env_r_valid = sample_environment(pack, rd)
+    refr_env = torch.where(env_r_valid[:, None], refr_mult * env_r, 0.0)
+    refr_add = torch.where((case == _CASE_MISS)[:, None], _vec(NAN_PURPLE, o),
+                           0.0)
+
+    # --- GI lobe ---
+    drop_gi = torch.zeros((), dtype=torch.int64, device=o.device)
+    gi_on = cfg.gi_active(level)
+    if gi_on:
+        gi_o, gi_d, gi_albedo, gi_env = sh.gi_o, sh.gi_d, sh.gi_albedo, sh.gi_env
+        g_cap = cfg.gi_cap(n)
+        if g_cap < n:
+            # Missed / inactive lanes need no GI subtree.
+            sel_g = partition_indices(shade, g_cap)
+            sel_g_valid = shade[sel_g]
+            drop_gi = shade.sum() - sel_g_valid.sum()
+            gi_children = Tasks(o=gi_o[sel_g], d=gi_d[sel_g],
+                                active=sel_g_valid,
+                                bounce=tasks.bounce[sel_g])
+        else:
+            # Identity mapping: child row == parent lane.
+            sel_g = torch.arange(n, device=o.device)
+            sel_g_valid = shade
+            gi_children = Tasks(o=gi_o, d=gi_d, active=shade,
+                                bounce=tasks.bounce)
+    else:
+        gi_albedo = o.new_zeros((n, 3))
+        gi_env = o.new_zeros((n, 3))
+        sel_g = torch.zeros(0, dtype=torch.int64, device=o.device)
+        sel_g_valid = torch.zeros(0, dtype=torch.bool, device=o.device)
+
+    rec = LevelRecord(
+        active=tasks.active, hit=hit.hit, z=surf.z, direct=sh.direct,
+        gi_albedo=gi_albedo, gi_env=gi_env, refr_sel=sel,
+        refr_valid=sel_valid, refr_has_child=refr_has_child,
+        refr_mult=refr_mult, refr_absorb=refr_absorb, refr_env=refr_env,
+        refr_add=refr_add, gi_sel=sel_g, gi_valid=sel_g_valid,
+        drop_refr=drop_refr, drop_tir=drop_tir, drop_gi=drop_gi, segs=segs)
+
+    # --- children: [compacted GI (G)] ++ [compacted refraction (K)] ---
+    refr_children = Tasks(o=ro, d=rd, active=refr_has_child, bounce=bounce_left)
+    if gi_on:
+        children = Tasks(*[torch.cat([g, r]) for g, r in
+                           zip(gi_children, refr_children)])
+    else:
+        children = refr_children
+    return rec, children, surf
+
+
+def _combine_level(cfg: RenderConfig, level: int, rec: LevelRecord,
+                   child_rad, child_z, child_hit):
+    """Backward combine: Shade's stage sums with clamp + early-out
+    semantics (MtlBlinn.cpp:117-131). Children arrive as [gi (G)] ++
+    [refr (K)]."""
+    n = rec.active.shape[0]
+    gi_on = cfg.gi_active(level)
+    g_cap = cfg.gi_cap(n) if gi_on else 0
+    r_rad, r_z, r_hit = child_rad[g_cap:], child_z[g_cap:], child_hit[g_cap:]
+
+    # --- refraction term at K width, scattered to parent lanes ---
+    absorb = torch.exp(-rec.refr_absorb * r_z[:, None])
+    refr_k = torch.where(
+        rec.refr_has_child[:, None],
+        torch.where(r_hit[:, None],
+                    _clamp_white(rec.refr_mult * absorb * r_rad),
+                    _clamp_white(rec.refr_env)),
+        _clamp_white(rec.refr_add))
+    refr_k = torch.where(rec.refr_valid[:, None], refr_k, 0.0)
+    out = refr_k.new_zeros((n, 3))
+    out[rec.refr_sel] = refr_k
+    sat = (out >= 1.0).all(1)
+
+    nan_purple = _vec(NAN_PURPLE, out)
+    if gi_on:
+        g_rad, g_z, g_hit = (child_rad[:g_cap], child_z[:g_cap],
+                             child_hit[:g_cap])
+        if g_cap == n:
+            albedo_g, env_g, hit_g = rec.gi_albedo, rec.gi_env, g_hit
+        else:
+            albedo_g = rec.gi_albedo[rec.gi_sel]
+            env_g = rec.gi_env[rec.gi_sel]
+            hit_g = g_hit & rec.gi_valid
+        gi_hit_term = torch.where((hit_g & (g_z > cfg.bias))[:, None],
+                                  g_rad * albedo_g, 0.0)
+        gi_g = torch.where(hit_g[:, None], gi_hit_term, env_g)
+        gi_g = torch.where(torch.isnan(gi_g[:, 0:1]), nan_purple, gi_g)
+        gi_g = _clamp_white(gi_g)
+        if g_cap == n:
+            gi = gi_g
+        else:
+            # Parents without a slot keep their environment term.
+            gi = torch.where(torch.isnan(rec.gi_env[:, 0:1]), nan_purple,
+                             rec.gi_env)
+            gi = _clamp_white(gi)
+            gi[rec.gi_sel] = gi_g
+        out = out + torch.where(sat[:, None], 0.0, gi)
+        sat = (out >= 1.0).all(1)
+
+    out = out + torch.where(sat[:, None], 0.0, rec.direct)
+    out = torch.where(torch.isnan(out[:, 0:1]), nan_purple, out)
+    return torch.where((rec.active & rec.hit)[:, None], out, 0.0)
+
+
+def _combine_tree(cfg: RenderConfig, recs, probe):
+    """Backward combine over all levels -> level-0 radiance; children of
+    the last level contribute black."""
+    m = probe.shape[0]
+    child_rad = torch.zeros((m, 3), device=probe.device)
+    child_z = torch.full((m,), BIG, device=probe.device)
+    child_hit = torch.zeros(m, dtype=torch.bool, device=probe.device)
+    for level in reversed(range(cfg.max_levels)):
+        child_rad = _combine_level(cfg, level, recs[level], child_rad,
+                                   child_z, child_hit)
+        child_z, child_hit = recs[level].z, recs[level].hit
+    return child_rad
+
+
+# ---------------------------------------------------------------------------
+# chunks and images
+# ---------------------------------------------------------------------------
+
+
+def _level_key(key, level: int):
+    return rng.fold_in(rng.fold_in(key, 1), 100 + level)
+
+
+def _raygen(pack, cfg, cam, width: int, height: int, chunk: int, start: int,
+            ck):
+    """Camera rays of lanes start..start+chunk (clamped to the last pixel)
+    and their background colours (pathtracer.py:1108-1153)."""
+    idx = torch.clamp_max(start + torch.arange(chunk, device=ck.device),
+                          width * height - 1)
+    px, py = idx % width, idx // width
+    u = rng.uniform(rng.fold_in(ck, 0), (chunk, 2))
+    o, d = gen_rays(cam, width, height, px, py, u)
+    return o, d, sample_background(pack, chunk)
+
+
+def render_chunk(pack, cfg: RenderConfig, cam, width: int, height: int,
+                 chunk: int, start: int, key, sample: int):
+    """Radiance (chunk,3) of one sample of one chunk, and its per-level
+    LevelRecords."""
+    ck = rng.fold_in(rng.fold_in(key, sample), start)
+    o, d, bg = _raygen(pack, cfg, cam, width, height, chunk, start, ck)
+    tasks = Tasks(o=o, d=d,
+                  active=torch.ones(chunk, dtype=torch.bool, device=o.device),
+                  bounce=torch.full((chunk,), cfg.tir_bounces,
+                                    dtype=torch.int32, device=o.device))
+    recs = []
+    for level in range(cfg.max_levels):
+        rec, tasks, _ = _shade_level(pack, cfg, tasks, level,
+                                     _level_key(ck, level))
+        recs.append(rec)
+    rad = _combine_tree(cfg, recs, tasks.active)
+    return torch.where(recs[0].hit[:, None], rad, bg), recs
+
+
+def check_supported_render(pack, cfg: RenderConfig,
+                           checkpoint_dir=None) -> None:
+    """Raise NotImplementedError on inputs outside the slice, naming the
+    ROADMAP item that ports each."""
+    todo = [
+        (checkpoint_dir is not None, "checkpoint_dir: resumable renders come "
+                                     "with the CLI, ROADMAP Queue 1 item 14"),
+        (cfg.use_photon_map, "use_photon_map: the photon map is ROADMAP "
+                             "Queue 1 item 10"),
+        (cfg.use_denoiser, "use_denoiser: the denoiser is ROADMAP Queue 1 "
+                           "item 12"),
+        (cfg.differentiable, "differentiable: gradients are ROADMAP Queue 1 "
+                             "item 11"),
+        (cfg.use_dof, "use_dof: depth of field comes with the CLI, "
+                      "ROADMAP Queue 1 item 14"),
+        (cfg.adaptive_spp > 0, "adaptive_spp: adaptive sampling is ROADMAP "
+                               "Queue 1 item 6 (rest)"),
+        (pack.n_texmaps > 0 or int(pack.bg_tm) >= 0 or int(pack.env_tm) >= 0,
+         "texture maps: textures are ROADMAP Queue 1 item 8"),
+    ]
+    for bad, what in todo:
+        if bad:
+            raise NotImplementedError(what)
+    check_traceable(pack)
+    check_supported(pack)
+
+
+def _escalated(cfg: RenderConfig, esc: int) -> RenderConfig:
+    """The escalating re-render config of a chunk that dropped lanes:
+    double the capacities per retry, lossless as the last resort
+    (pathtracer.py:1494-1517)."""
+    if cfg.refr_capacity * (2 ** esc) >= 1.0 or esc > 3:
+        return dataclasses.replace(cfg, refr_capacity=1.0,
+                                   tir_tail_compaction=False, gi_capacity=1.0,
+                                   adaptive_full_capacity=False)
+    return dataclasses.replace(
+        cfg, refr_capacity=min(1.0, cfg.refr_capacity * (2 ** esc)),
+        gi_capacity=1.0, tir_head_trips=max(cfg.tir_head_trips, 3),
+        tir_tail_divisor=max(1, cfg.tir_tail_divisor >> esc))
+
+
+def render_image(pack, camera, cfg: RenderConfig = RenderConfig(),
+                 seed: int = 0, return_stats: bool = False,
+                 checkpoint_dir=None):
+    """Render a full image: (H, W, 3) float32 in [0,1] after gamma
+    (Main.cpp:216-231), on the pack's device. `camera` is a scene-desc
+    Camera. With return_stats, also the ChunkStats summed over the image.
+
+    Lanes are (pixel, sample); the image is cut into chunks of
+    cfg.chunk_rays pixels and each chunk renders its spp samples. A chunk
+    whose drop counters are nonzero is re-rendered with escalating
+    capacities (pathtracer.py:1491-1510)."""
+    check_supported_render(pack, cfg, checkpoint_dir)
+    dev = pack.device
+    cam = from_scene_camera(camera, dev)
+    width, height = camera.width, camera.height
+    total = width * height
+    chunk = min(max(1, cfg.chunk_rays), total)
+    key = rng.prng_key(seed, dev)
+    accum = torch.zeros((total, 3), device=dev)
+    totals = np.zeros(4, np.int64)
+
+    def run_chunk(cfg_run, start):
+        acc = torch.zeros((chunk, 3), device=dev)
+        st = torch.zeros(4, dtype=torch.int64, device=dev)
+        for s in range(cfg.spp):
+            rad, recs = render_chunk(pack, cfg_run, cam, width, height, chunk,
+                                     start, key, s)
+            acc += rad
+            for r in recs:
+                st += torch.stack([r.drop_refr, r.drop_tir, r.drop_gi,
+                                   r.segs]).to(torch.int64)
+        return acc, st.cpu().numpy()
+
+    for start in range(0, total, chunk):
+        acc, st = run_chunk(cfg, start)
+        esc = 0
+        cfg_run = cfg
+        while st[:3].any() and cfg_run.adaptive_full_capacity:
+            esc += 1
+            cfg_run = _escalated(cfg, esc)
+            acc, st = run_chunk(cfg_run, start)
+        count = min(start + chunk, total) - start
+        accum[start:start + count] = acc[:count]
+        totals += st
+
+    img = accum / float(cfg.spp)
+    if cfg.use_gamma:
+        img = torch.pow(torch.clamp_min(img, 0.0), 1.0 / cfg.gamma)
+    img = img.reshape(height, width, 3)
+    if return_stats:
+        return img, ChunkStats(*(int(x) for x in totals))
+    return img
+
+
+def image_to_u8(img) -> np.ndarray:
+    """Color24 conversion (cyColor.h:231): clamp to [0,1], scale, round."""
+    if isinstance(img, torch.Tensor):
+        img = img.detach().cpu().numpy()
+    return np.clip(np.asarray(img) * 255.0 + 0.5, 0.0, 255.0).astype(np.uint8)

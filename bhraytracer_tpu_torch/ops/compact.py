@@ -1,0 +1,25 @@
+"""Wavefront compaction (the port of bhraytracer_tpu/ops/compact.py).
+
+Slot order decides which lanes keep their RNG streams and which are
+dropped, so `partition_indices` reproduces the stable candidates-first
+order exactly (``argsort(~mask, stable=True)[:k]``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def partition_indices(mask: torch.Tensor, k: int | None = None) -> torch.Tensor:
+    """(k,) int64 indices of the stable partition that puts `mask` lanes
+    first, each group in its original order, truncated to k (default n)."""
+    n = mask.shape[0]
+    k = n if k is None else k
+    m = mask.to(torch.int64)
+    c_true = torch.cumsum(m, 0)
+    n_true = c_true[-1:] if n else c_true
+    pos = torch.where(mask, c_true - 1, n_true + torch.cumsum(1 - m, 0) - 1)
+    out = torch.empty(n, dtype=torch.int64, device=mask.device)
+    out[pos] = torch.arange(n, device=mask.device)
+    return out[:k]
+

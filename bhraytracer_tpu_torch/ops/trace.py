@@ -1,0 +1,206 @@
+"""Scene tracing: closest hit, occlusion, and hit resolution.
+
+One route: every trace goes through the stream kernels of ops/stream.py,
+the analytic instances folded in (the CUDA kernels on the card, their
+twins on the CPU). The JAX package routes level-0 camera rays through its
+packet BVH kernel instead; brute-force streaming is exact and per-lane
+results do not depend on ray order, so only equal-t seam ties can differ
+(bhraytracer_tpu/ops/trace.py:486-493, pallas_stream.py:31-34).
+
+`resolve_hit` recomputes the surface interaction from the discrete hit ids
+(bhraytracer_tpu/ops/trace.py:793-995) for the refraction chain.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from bhraytracer_tpu_torch.ops.intersect import triangle_areas
+from bhraytracer_tpu_torch.ops.linalg import (
+    BIG,
+    cross,
+    dot,
+    mat_t_vec,
+    mat_vec,
+    normalize,
+    safe_sqrt,
+)
+from bhraytracer_tpu_torch.ops.stream import (
+    STREAM_MAX_FACES,
+    instance_table,
+    stream_anyhit,
+    stream_closest,
+)
+
+KIND_SPHERE, KIND_PLANE, KIND_MESH = 0, 1, 2
+# TriObj.cpp Bias (TriObj.cpp:9), in world t units (frame-invariant).
+MESH_SHADOW_BIAS = 1e-4
+
+
+class Hit(NamedTuple):
+    t: torch.Tensor  # (N,) f32, BIG on a miss
+    kind: torch.Tensor  # (N,) i32
+    inst: torch.Tensor  # (N,) i32
+    face: torch.Tensor  # (N,) i32 global face id (mesh hits), -1 else
+    front: torch.Tensor  # (N,) bool
+    hit: torch.Tensor  # (N,) bool
+
+
+class Surface(NamedTuple):
+    p: torch.Tensor  # (N,3) world hit point
+    n: torch.Tensor  # (N,3) world shading normal (normalised, never flipped)
+    uvw: torch.Tensor  # (N,3)
+    duvw: torch.Tensor  # (N,2,3)
+    mtl: torch.Tensor  # (N,) i32
+    z: torch.Tensor  # (N,) ray parameter
+    front: torch.Tensor  # (N,) bool
+
+
+def analytic_tables(pack):
+    """(sphere rows (S,12), plane rows (P,12)) of the real instances."""
+    return (instance_table(pack.sph_itm[:pack.n_sph], pack.sph_pos[:pack.n_sph]),
+            instance_table(pack.pln_itm[:pack.n_pln], pack.pln_pos[:pack.n_pln]))
+
+
+def check_traceable(pack) -> None:
+    """The slice's stream route takes scenes up to STREAM_MAX_FACES faces."""
+    if pack.face_v.shape[0] > STREAM_MAX_FACES:
+        raise NotImplementedError(
+            f"{pack.face_v.shape[0]} faces: scenes above {STREAM_MAX_FACES} "
+            "faces need the BVH / grouped-stream trace kernels "
+            "(ROADMAP Queue 1 item 9, Queue 2 items 1-2)")
+
+
+def decode_key(pack, t, key) -> Hit:
+    """Hit from the stream kernels' packed key (trace.py:597-609): face =
+    key >> 1, front = key & 1, analytic codes -(2 + inst*4 + kind*2 +
+    front)."""
+    face = key >> 1
+    front = (key & 1).bool()
+    ana = face <= -2
+    code = (-face) - 2
+    mface = face.clamp(0, pack.face_inst.shape[0] - 1)
+    minst = pack.face_inst[mface.long()]
+    return Hit(t=t,
+               kind=torch.where(ana, (code >> 1) & 1, KIND_MESH).to(torch.int32),
+               inst=torch.where(ana, code >> 2, minst).to(torch.int32),
+               face=torch.where(ana, -1, face).to(torch.int32),
+               front=front,
+               hit=t < BIG)
+
+
+def trace_closest(pack, o, d, hit_side: str = "front") -> Hit:
+    """Closest hit over all instances. o, d: (N,3) world rays."""
+    sph, pln = analytic_tables(pack)
+    o, d = o.contiguous(), d.contiguous()
+    t_init = torch.full((o.shape[0],), BIG, dtype=torch.float32,
+                        device=o.device)
+    t, key = stream_closest(pack.stream_rows, sph, pln, o, d, t_init,
+                            hit_side)
+    return decode_key(pack, t, key)
+
+
+def trace_shadow(pack, o, d, t_max, shadow_bias: float,
+                 plane_extent_bug: bool = False):
+    """Boolean occlusion (ShadowRayRecursive, GenLight.cpp:15-69): front
+    mesh faces in (MESH_SHADOW_BIAS, t_max), analytic occluders in
+    (shadow_bias, t_max). `plane_extent_bug` reproduces the reference's
+    plane frame mix-up (GenLight.cpp:37-40)."""
+    sph, pln = analytic_tables(pack)
+    t_max = torch.as_tensor(t_max, dtype=torch.float32, device=o.device)
+    t_max = t_max.expand(o.shape[0]).contiguous()
+    return stream_anyhit(pack.stream_rows, sph, pln, o.contiguous(),
+                         d.contiguous(), t_max, MESH_SHADOW_BIAS,
+                         ana_bias=shadow_bias,
+                         plane_world_bug=plane_extent_bug)
+
+
+def resolve_hit(pack, o, d, hit: Hit) -> Surface:
+    """Recompute the surface interaction from discrete hit ids, in the form
+    the refraction chain calls (bhraytracer_tpu/ops/trace.py:793-995 with
+    minimal=True, fast_rows=True): p, n, z and mtl, with the mesh branch
+    read from the packed (F,32) `resolve_rows` table (copies of the vertex
+    and normal pools). uvw and duvw are zero; texture coordinates come with
+    the texture slice."""
+    n = o.shape[0]
+    kind = hit.kind
+    z3 = o.new_zeros((n, 3))
+    branches = {}
+
+    if pack.n_sph:
+        si = hit.inst.clamp(0, pack.sph_itm.shape[0] - 1).long()
+        s_itm = pack.sph_itm[si]
+        ol = mat_vec(s_itm, o - pack.sph_pos[si])
+        dl = mat_vec(s_itm, d)
+        a = dot(dl, dl)
+        b = 2.0 * dot(dl, ol)
+        c = dot(ol, ol) - 1.0
+        sq = safe_sqrt(b * b - 4.0 * a * c)
+        inv2a = 1.0 / torch.clamp_min(2.0 * a, 1e-30)
+        t_s = torch.where(hit.front, (-b - sq) * inv2a, (-b + sq) * inv2a)
+        p_s = ol + t_s[:, None] * dl
+        # N = local hit point (Sphere.cpp:57).
+        branches[KIND_SPHERE] = (t_s, p_s, p_s, pack.sph_mtl[si],
+                                 pack.sph_tm[si], s_itm, pack.sph_pos[si])
+
+    if pack.n_pln:
+        pi = hit.inst.clamp(0, pack.pln_itm.shape[0] - 1).long()
+        p_itm = pack.pln_itm[pi]
+        ol = mat_vec(p_itm, o - pack.pln_pos[pi])
+        dl = mat_vec(p_itm, d)
+        para = dl[:, 2].abs() < 1e-12
+        t_p = (torch.where(para, 0.0, -ol[:, 2])
+               / torch.where(para, 1.0, dl[:, 2]))
+        p_p = ol + t_p[:, None] * dl
+        n_p = torch.zeros_like(p_p)
+        n_p[:, 2] = 1.0
+        branches[KIND_PLANE] = (t_p, p_p, n_p, pack.pln_mtl[pi],
+                                pack.pln_tm[pi], p_itm, pack.pln_pos[pi])
+
+    if pack.n_msh:
+        mi = hit.inst.clamp(0, pack.msh_itm.shape[0] - 1).long()
+        m_itm = pack.msh_itm[mi]
+        ol = mat_vec(m_itm, o - pack.msh_pos[mi])
+        dl = mat_vec(m_itm, d)
+        rows = pack.resolve_rows[hit.face.clamp(0, pack.face_v.shape[0] - 1).long()]
+        v0, v1, v2 = rows[:, 0:3], rows[:, 3:6], rows[:, 6:9]
+        vn = cross(v1 - v0, v2 - v0)
+        tdiv = dot(vn, dl)
+        # Junk lanes (non-mesh, miss) may be near-parallel: zero them.
+        graze = tdiv.abs() < 1e-12
+        t_m = (torch.where(graze, 0.0, dot(vn, v0) - dot(vn, ol))
+               / torch.where(graze, 1.0, tdiv))
+        p_m = ol + t_m[:, None] * dl
+        a0, a1, a2 = triangle_areas(v0, v1, v2, p_m, vn)
+        asum = a0 + a1 + a2
+        asum = torch.where(asum.abs() < 1e-30, 1e-30, asum)
+        n_m = ((a0 / asum)[:, None] * rows[:, 9:12]
+               + (a1 / asum)[:, None] * rows[:, 12:15]
+               + (a2 / asum)[:, None] * rows[:, 15:18])
+        m_ml = pack.msh_mtl[mi]
+        branches[KIND_MESH] = (t_m, p_m, n_m,
+                               torch.where(m_ml >= 0, m_ml,
+                                           rows[:, 27].to(torch.int32)),
+                               pack.msh_tm[mi], m_itm, pack.msh_pos[mi])
+
+    duvw = o.new_zeros((n, 2, 3))
+    if not branches:
+        return Surface(p=z3, n=z3, uvw=z3, duvw=duvw,
+                       mtl=torch.zeros_like(kind), z=o.new_zeros(n),
+                       front=hit.front)
+
+    kinds = sorted(branches)
+
+    def sel(i):
+        out = branches[kinds[0]][i]
+        for kd in kinds[1:]:
+            m = (kind == kd).reshape((n,) + (1,) * (out.dim() - 1))
+            out = torch.where(m, branches[kd][i], out)
+        return out
+
+    t, p_l, n_l, mtl, tm, itm, pos = (sel(i) for i in range(7))
+    # FromNodeCoords (scene.h:497-501): p -> tm p + pos, N -> itm^T N.
+    return Surface(p=mat_vec(tm, p_l) + pos, n=normalize(mat_t_vec(itm, n_l)),
+                   uvw=z3, duvw=duvw, mtl=mtl, z=t, front=hit.front)

@@ -1,0 +1,143 @@
+"""ScenePack: the flat structure-of-arrays tensor form of a scene.
+
+Field names and layouts are those of bhraytracer_tpu/scene/pack.py, so the
+parity tests compare like with like, minus the TPU packet kernel's row
+tables (`pallas_nodes`, `pallas_faces`, `treelets`) and plus the one table
+the port's trace kernels read, `stream_rows`. The pack plays the part of
+the model's weights: `pack_from_numpy` carries the JAX package's pack
+across, and `compile_scene` builds the same arrays from a SceneDesc.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from bhraytracer_tpu_torch.ops.stream import stream_table
+
+
+@dataclasses.dataclass
+class ScenePack:
+    # ---- sphere / plane / mesh instances: world->local, local->world, pos,
+    # material (one inert identity row when a category is empty) ----
+    sph_itm: torch.Tensor  # (S,3,3)
+    sph_tm: torch.Tensor
+    sph_pos: torch.Tensor  # (S,3)
+    sph_mtl: torch.Tensor  # (S,) i32
+    pln_itm: torch.Tensor
+    pln_tm: torch.Tensor
+    pln_pos: torch.Tensor
+    pln_mtl: torch.Tensor
+    msh_itm: torch.Tensor
+    msh_tm: torch.Tensor
+    msh_pos: torch.Tensor
+    msh_mtl: torch.Tensor  # (Mi,) i32, -1 = per-face table
+
+    # ---- mesh geometry, faces in world-BVH leaf order ----
+    verts: torch.Tensor  # (V,3) local frame
+    normals: torch.Tensor  # (VN,3)
+    uvs: torch.Tensor  # (VT,3)
+    face_v: torch.Tensor  # (F,3) i32
+    face_vn: torch.Tensor
+    face_vt: torch.Tensor
+    face_mtl: torch.Tensor  # (F,) i32
+    face_inst: torch.Tensor  # (F,) i32
+    bvh_bmin: torch.Tensor  # (B,3)
+    bvh_bmax: torch.Tensor
+    bvh_left: torch.Tensor  # (B,) i32
+    bvh_count: torch.Tensor  # (B,) i32
+    wtri_v0: torch.Tensor  # (F,3) world-space triangles
+    wtri_v1: torch.Tensor
+    wtri_v2: torch.Tensor
+    # Local-frame resolve row per face: [v0 v1 v2 | vn0 vn1 vn2 | uv0 uv1 uv2
+    # | face_mtl | pad] (the one-row gather of resolve_hit's fast form).
+    resolve_rows: torch.Tensor  # (F,32)
+    # Affine-barycentric stream rows (ops/stream.py), padded with zero rows.
+    stream_rows: torch.Tensor  # (F_pad,16)
+
+    # ---- materials ----
+    mtl_diffuse: torch.Tensor  # (M,3)
+    mtl_specular: torch.Tensor
+    mtl_gloss: torch.Tensor  # (M,)
+    mtl_emission: torch.Tensor
+    mtl_reflection: torch.Tensor
+    mtl_refl_gloss: torch.Tensor
+    mtl_refraction: torch.Tensor
+    mtl_refr_gloss: torch.Tensor
+    mtl_ior: torch.Tensor
+    mtl_absorption: torch.Tensor
+    mtl_diffuse_tm: torch.Tensor  # (M,) i32 texmap id or -1
+    mtl_specular_tm: torch.Tensor
+    mtl_emission_tm: torch.Tensor
+    mtl_reflection_tm: torch.Tensor
+    mtl_refraction_tm: torch.Tensor
+
+    # ---- texture maps and textures (carried; rendering them is not ported)
+    tm_tex: torch.Tensor
+    tm_itm: torch.Tensor
+    tm_pos: torch.Tensor
+    tex_kind: torch.Tensor
+    tex_c1: torch.Tensor
+    tex_c2: torch.Tensor
+    tex_wh: torch.Tensor
+    atlas: torch.Tensor
+
+    # ---- background / environment ----
+    bg_color: torch.Tensor  # (3,)
+    bg_tm: torch.Tensor  # () i32
+    env_color: torch.Tensor
+    env_tm: torch.Tensor
+
+    # ---- lights, ascending by gray intensity ----
+    light_kind: torch.Tensor  # (L,) i32: 0 ambient, 1 direct, 2 point
+    light_intensity: torch.Tensor
+    light_vec: torch.Tensor
+    light_size: torch.Tensor
+
+    bvh_depth: int = 1
+    n_sph: int = 0
+    n_pln: int = 0
+    n_msh: int = 0
+    n_lights: int = 0
+    has_file_tex: bool = False
+    n_texmaps: int = 0
+
+    @property
+    def device(self) -> torch.device:
+        return self.stream_rows.device
+
+
+_META = ("bvh_depth", "n_sph", "n_pln", "n_msh", "n_lights", "has_file_tex",
+         "n_texmaps")
+_DATA = tuple(f.name for f in dataclasses.fields(ScenePack)
+              if f.name not in _META and f.name != "stream_rows")
+
+
+def face_planes(wtri_v0, wtri_v1, wtri_v2):
+    """Per-face (normal (F,3), 1/|normal| (F,)) in float32, computed as
+    bhraytracer_tpu/scene/compile.py packs them into pallas_faces[:, 9:14]."""
+    f32 = np.float32
+    fn_ = np.cross(wtri_v1 - wtri_v0, wtri_v2 - wtri_v0).astype(f32)
+    nlen = np.sqrt(np.maximum((fn_ * fn_).sum(1), 1e-30))
+    return fn_, (1.0 / nlen).astype(f32)
+
+
+def pack_from_numpy(d: dict, device=None) -> ScenePack:
+    """Build the port's pack from the JAX pack as numpy arrays.
+
+    `d` maps every field of the JAX ScenePack to a numpy array (as
+    `jax.tree.map(np.asarray, pack)` gives) or, for the static fields, to
+    an int; fields the port has no use for (`pallas_*`, `treelets`) are
+    ignored. `stream_rows` is derived from the world triangles."""
+    t = {k: torch.from_numpy(np.array(d[k], order="C")).to(device)
+         for k in _DATA}
+    v0, v1, v2 = (np.array(d[k], np.float32)
+                  for k in ("wtri_v0", "wtri_v1", "wtri_v2"))
+    fn_, inv_nlen = face_planes(v0, v1, v2)
+    rows = stream_table(
+        *(torch.from_numpy(x).to(device) for x in (v0, v1, v2, fn_, inv_nlen)))
+    meta = {k: (bool(d[k]) if k == "has_file_tex" else int(d[k]))
+            for k in _META}
+    return ScenePack(**t, stream_rows=rows, **meta)

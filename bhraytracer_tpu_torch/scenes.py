@@ -1,0 +1,91 @@
+"""The slice's scenes, built from SceneDesc values equal to the JAX
+package's: `tiny_scene` is `__graft_entry__._tiny_scene` (two spheres, one
+of them glass with ior 1.52, a ground plane, a point light of size 0.5 and
+a direct light) and `bench_scene` is `bench._builtin_bench_scene` (the
+same plus assets/Resource/Data/teapot.obj at scale 0.25 translated by
+(0, 2.5, 0)). Both return (pack, camera); the camera is 64x48 until the
+caller sets its width and height.
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+
+from bhraytracer_tpu_torch.scene import desc as D
+from bhraytracer_tpu_torch.scene.compile import compile_scene
+from bhraytracer_tpu_torch.scene.obj_loader import load_obj
+
+TEAPOT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                      "assets", "Resource", "Data", "teapot.obj")
+
+
+def tiny_scene_desc() -> D.SceneDesc:
+    sd = D.SceneDesc()
+    red = D.MaterialDesc(name="red")
+    red.diffuse = D.TexturedColorDesc(color=np.array([0.8, 0.2, 0.2]))
+    red.specular = D.TexturedColorDesc(color=np.array([0.5, 0.5, 0.5]))
+    red.glossiness = 20.0
+    glass = D.MaterialDesc(name="glass")
+    glass.diffuse = D.TexturedColorDesc(color=np.zeros(3))
+    glass.specular = D.TexturedColorDesc(color=np.array([0.1, 0.1, 0.1]))
+    glass.glossiness = 100.0
+    glass.refraction = D.TexturedColorDesc(color=np.array([0.9, 0.9, 0.9]))
+    glass.ior = 1.52
+    white = D.MaterialDesc(name="white")
+    white.diffuse = D.TexturedColorDesc(color=np.array([0.9, 0.9, 0.9]))
+    white.specular = D.TexturedColorDesc(color=np.zeros(3))
+    sd.materials += [red, glass, white]
+
+    t1 = D.Transform()
+    t1.scale(1.5, 1.5, 1.5)
+    t1.translate(np.array([-1.5, 0.0, 1.5]))
+    sd.nodes.append(D.NodeDesc(kind="sphere", name="s1", transform=t1, material=0))
+    t2 = D.Transform()
+    t2.translate(np.array([1.5, 0.0, 1.0]))
+    sd.nodes.append(D.NodeDesc(kind="sphere", name="s2", transform=t2, material=1))
+    t3 = D.Transform()
+    t3.scale(20.0, 20.0, 20.0)
+    sd.nodes.append(D.NodeDesc(kind="plane", name="ground", transform=t3, material=2))
+
+    sd.lights.append(D.LightDesc(kind="point", intensity=np.full(3, 50.0),
+                                 position=np.array([4.0, -4.0, 8.0]), size=0.5))
+    sd.lights.append(D.LightDesc(
+        kind="direct", intensity=np.full(3, 0.3),
+        direction=np.array([1.0, 0.5, -1.0]) / np.linalg.norm([1.0, 0.5, -1.0])))
+    sd.background = D.TexturedColorDesc(color=np.array([0.1, 0.2, 0.3]))
+    sd.environment = D.TexturedColorDesc(color=np.array([0.2, 0.2, 0.2]))
+
+    cam = D.Camera()
+    cam.pos = np.array([0.0, -8.0, 3.0])
+    d = np.array([0.0, 8.0, -2.0])
+    cam.dir = d / np.linalg.norm(d)
+    x = np.cross(cam.dir, np.array([0.0, 0.0, 1.0]))
+    up = np.cross(x, cam.dir)
+    cam.up = up / np.linalg.norm(up)
+    cam.fov = 40.0
+    cam.width, cam.height = 64, 48
+    sd.camera = cam
+    return sd
+
+
+def bench_scene_desc() -> D.SceneDesc:
+    sd = tiny_scene_desc()
+    sd.meshes.append(load_obj(TEAPOT))
+    t = D.Transform()
+    t.scale(0.25, 0.25, 0.25)
+    t.translate(np.array([0.0, 2.5, 0.0]))
+    sd.nodes.append(D.NodeDesc(kind="mesh", name="teapot", transform=t,
+                               material=0, mesh=len(sd.meshes) - 1))
+    return sd
+
+
+def tiny_scene(device=None):
+    sd = tiny_scene_desc()
+    return compile_scene(sd, device=device), sd.camera
+
+
+def bench_scene(device=None):
+    sd = bench_scene_desc()
+    return compile_scene(sd, device=device), sd.camera

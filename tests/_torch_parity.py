@@ -1,0 +1,63 @@
+"""Shared fixtures of the port's parity tests (tests/test_torch_*.py): the
+JAX package's scenes and their port packs, made once per process."""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import functools
+
+import numpy as np
+
+
+def pack_dict(jpack) -> dict:
+    """The JAX pack as the dict `pack_from_numpy` takes."""
+    return {f.name: (np.asarray(v) if not isinstance(v, (int, bool, tuple))
+                     else v)
+            for f in dataclasses.fields(jpack)
+            for v in [getattr(jpack, f.name)]}
+
+
+@functools.lru_cache(maxsize=None)
+def jax_scene(name: str):
+    """(pack, camera) of the JAX package: "tiny" is
+    __graft_entry__._tiny_scene, "bench" is bench._builtin_bench_scene."""
+    if name == "tiny":
+        from __graft_entry__ import _tiny_scene
+
+        return _tiny_scene()
+    from bench import _builtin_bench_scene
+
+    return _builtin_bench_scene()
+
+
+@functools.lru_cache(maxsize=None)
+def port_pack(name: str):
+    """The port's pack carried across from the JAX pack."""
+    from bhraytracer_tpu_torch.scene.pack import pack_from_numpy
+
+    return pack_from_numpy(pack_dict(jax_scene(name)[0]))
+
+
+@contextlib.contextmanager
+def pallas_on():
+    """Route the JAX package's traces and shading through its Pallas
+    kernels in interpret mode (tests/test_stream.py:127-134)."""
+    from bhraytracer_tpu.ops import trace as T
+
+    T.set_pallas_mode("on")
+    try:
+        yield
+    finally:
+        T.set_pallas_mode("auto")
+
+
+def seeded_rays(n: int, seed: int):
+    """(o, d) float32 numpy rays aimed into the scenes' common box (the
+    spheres, the teapot and the ground around them), from a seed."""
+    rng = np.random.default_rng(seed)
+    lo, hi = np.array([-3.5, -2.0, -0.5]), np.array([3.5, 3.5, 3.5])
+    o = rng.uniform(lo - 3.0, hi + 3.0, (n, 3))
+    o[:, 2] = np.abs(o[:, 2]) + 0.2  # above the ground plane
+    target = rng.uniform(lo, hi, (n, 3))
+    return o.astype(np.float32), (target - o).astype(np.float32)
