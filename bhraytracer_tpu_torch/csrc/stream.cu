@@ -27,165 +27,11 @@
 // (the lowest key face*2 + front); a mesh hit replaces the analytic winner
 // only when strictly closer.
 
-#include "common.cuh"
+#include "trace.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kTile = 128;  // face rows staged per shared-memory tile
-
-// Clamp-below that propagates NaN like torch.clamp_min / jnp.maximum.
-__device__ __forceinline__ float clamp_min(float x, float lo) {
-  return (x != x || x >= lo) ? x : lo;
-}
-
-struct Ray {
-  float ox, oy, oz, dx, dy, dz;
-};
-
-// Closest analytic hit seeded by t0 (pallas_analytic.py:39-93): writes the
-// best t and the face code -(2 + inst*4 + kind*2 + front) (-1 if none).
-template <int SIDE>
-__device__ void analytic_closest(const float* sph, int n_sph, const float* pln,
-                                 int n_pln, const Ray& r, float& bt,
-                                 int& bcode, int& bfront) {
-  float l[6];
-  for (int k = 0; k < n_sph; ++k) {
-    bhrt_local_ray(sph + 12 * k, r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, l);
-    const float a = l[3] * l[3] + l[4] * l[4] + l[5] * l[5];
-    const float b = 2.0f * (l[3] * l[0] + l[4] * l[1] + l[5] * l[2]);
-    const float c = l[0] * l[0] + l[1] * l[1] + l[2] * l[2] - 1.0f;
-    const float disc = b * b - 4.0f * a * c;
-    const bool ok = disc > 0.0f;
-    const float sq = sqrtf(clamp_min(disc, 0.0f));
-    const float inv2a = 1.0f / clamp_min(2.0f * a, 1e-30f);
-    const float t1 = (-b + sq) * inv2a;
-    const float t2 = (-b - sq) * inv2a;
-    const bool both_pos = t2 > 0.0f;
-    const bool inside = t1 * t2 <= 0.0f;
-    float t;
-    int front;
-    if (SIDE == 0) {
-      t = both_pos ? t2 : BHRT_BIG;
-      front = 1;
-    } else if (SIDE == 1) {
-      t = (both_pos || inside) ? t1 : BHRT_BIG;
-      front = 0;
-    } else {
-      t = both_pos ? t2 : (inside ? t1 : BHRT_BIG);
-      front = both_pos ? 1 : 0;
-    }
-    t = (ok && t > 0.0f) ? t : BHRT_BIG;
-    if (t < bt) {
-      bt = t;
-      bcode = -(2 + k * 4 + front);
-      bfront = front;
-    }
-  }
-  for (int k = 0; k < n_pln; ++k) {
-    bhrt_local_ray(pln + 12 * k, r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, l);
-    float t = -l[2] / (l[5] == 0.0f ? 1e-30f : l[5]);
-    const float x = l[0] + t * l[3];
-    const float y = l[1] + t * l[4];
-    const bool in_ext = fabsf(x) <= 1.0f && fabsf(y) <= 1.0f;
-    const int front = l[5] < 0.0f ? 1 : 0;
-    bool ok = l[5] != 0.0f && t > 0.0f && in_ext;
-    if (SIDE == 0) ok = ok && front;
-    if (SIDE == 1) ok = ok && !front;
-    t = ok ? t : BHRT_BIG;
-    if (t < bt) {
-      bt = t;
-      bcode = -(2 + k * 4 + 2 + front);
-      bfront = front;
-    }
-  }
-}
-
-// Occlusion by the analytic instances within (ana_bias, tm)
-// (pallas_analytic.py:96-127).
-__device__ bool analytic_anyhit(const float* sph, int n_sph, const float* pln,
-                                int n_pln, const Ray& r, float tm,
-                                float ana_bias, int plane_world_bug) {
-  float l[6];
-  for (int k = 0; k < n_sph; ++k) {
-    bhrt_local_ray(sph + 12 * k, r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, l);
-    const float a = l[3] * l[3] + l[4] * l[4] + l[5] * l[5];
-    const float b = 2.0f * (l[3] * l[0] + l[4] * l[1] + l[5] * l[2]);
-    const float c = l[0] * l[0] + l[1] * l[1] + l[2] * l[2] - 1.0f;
-    const float disc = b * b - 4.0f * a * c;
-    const float sq = sqrtf(clamp_min(disc, 0.0f));
-    const float tmin = (-b - sq) / clamp_min(2.0f * a, 1e-30f);
-    if (disc > 0.0f && tmin > ana_bias && tmin < tm) return true;
-  }
-  for (int k = 0; k < n_pln; ++k) {
-    bhrt_local_ray(pln + 12 * k, r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, l);
-    const float t = -l[2] / (l[5] == 0.0f ? 1e-30f : l[5]);
-    float x, y;
-    if (plane_world_bug) {
-      x = r.ox + t * r.dx;
-      y = r.oy + t * r.dy;
-    } else {
-      x = l[0] + t * l[3];
-      y = l[1] + t * l[4];
-    }
-    const bool in_ext = fabsf(x) <= 1.0f && fabsf(y) <= 1.0f;
-    if (l[5] != 0.0f && t >= 0.0f && in_ext && t > ana_bias && t < tm)
-      return true;
-  }
-  return false;
-}
-
-// One face row against one ray (_slab_test, pallas_stream.py:174-199).
-// Returns true on a hit; t and front are set whenever the plane test ran.
-template <int SIDE>
-__device__ __forceinline__ bool face_test(const float4* row, const Ray& r,
-                                          float inv_dlen, float& t,
-                                          int& front) {
-  const float4 a = row[0], g0 = row[1], g1 = row[2];
-  const float tdiv = a.x * r.dx + a.y * r.dy + a.z * r.dz;
-  const float pd = tdiv * inv_dlen;
-  const float ndoto = a.x * r.ox + a.y * r.oy + a.z * r.oz;
-  t = (a.w - ndoto) / (tdiv == 0.0f ? 1e-30f : tdiv);
-  front = tdiv < 0.0f ? 1 : 0;
-  bool ok = fabsf(pd) >= BHRT_PERP_EPS && t > 0.0f;
-  if (SIDE == 0) ok = ok && front;
-  if (SIDE == 1) ok = ok && !front;
-  if (!ok) return false;
-  const float hx = r.ox + t * r.dx;
-  const float hy = r.oy + t * r.dy;
-  const float hz = r.oz + t * r.dz;
-  const float b0 = g0.x * hx + g0.y * hy + g0.z * hz + g0.w;
-  const float b1 = g1.x * hx + g1.y * hy + g1.z * hz + g1.w;
-  const float b2 = 1.0f - b0 - b1;
-  return b0 >= 0.0f && b1 >= 0.0f && b2 >= 0.0f;
-}
-
-__device__ __forceinline__ void load_ray(const float* o, const float* d,
-                                         int i, Ray& r) {
-  r.ox = o[3 * i];
-  r.oy = o[3 * i + 1];
-  r.oz = o[3 * i + 2];
-  r.dx = d[3 * i];
-  r.dy = d[3 * i + 1];
-  r.dz = d[3 * i + 2];
-}
-
-__device__ __forceinline__ float inv_length(const Ray& r) {
-  return 1.0f / sqrtf(clamp_min(r.dx * r.dx + r.dy * r.dy + r.dz * r.dz,
-                                1e-30f));
-}
-
-// Stage face rows [f0, f0 + kTile) (3 float4 of each 16-float row); rows
-// past n_rows are zero, which every test culls.
-__device__ __forceinline__ void stage_tile(float4* tile, const float* rows,
-                                           int n_rows, int f0) {
-  const float4* src = reinterpret_cast<const float4*>(rows);
-  for (int idx = threadIdx.x; idx < kTile * 3; idx += blockDim.x) {
-    const int f = f0 + idx / 3;
-    tile[idx] = f < n_rows ? src[4 * f + idx % 3]
-                           : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  }
-}
 
 template <int SIDE>
 __global__ void __launch_bounds__(kThreads)

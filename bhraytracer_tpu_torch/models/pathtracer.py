@@ -2,10 +2,14 @@
 bhraytracer_tpu/models/pathtracer.py).
 
 A bounded-depth tree wavefront: level l is a flat batch of shade tasks;
-`_shade_level` traces them (kernel 1), runs the fused shade setup
-(kernel 3), the shadow trace (kernel 2), the compacted refraction/TIR chain
-(kernel 1 per trip) and the GI sample, and emits the next level's tasks. A
-backward sweep (`_combine_tree`) combines radiance bottom-up with the
+`_shade_level` traces them, runs the fused shade setup (kernel 3), the
+shadow trace, the compacted refraction/TIR chain (one closest trace per
+trip) and the GI sample, and emits the next level's tasks. Level 0's
+closest and shadow traces take reorder=False, so they go through the BVH
+kernels (4-5) on mesh scenes; every other trace takes reorder=True: the
+flat stream kernels (1-2), or the grouped ones (6-7) above 8192 faces
+(ops/trace.py:trace_route; bhraytracer_tpu/models/pathtracer.py:683-726,
+816-821). A backward sweep (`_combine_tree`) combines radiance bottom-up with the
 reference's per-stage clamp and early-out semantics (MtlBlinn.cpp:79-83,
 117-131).
 
@@ -196,7 +200,8 @@ def _sample_in_light(pack, lidx, surf: Surface, mtl: Mtl, new_spec_color, u):
     return torch.where((kind == 2)[:, None], vl_point, vl_other)
 
 
-def _illuminate(pack, cfg: RenderConfig, lidx, p, u, mask):
+def _illuminate(pack, cfg: RenderConfig, lidx, p, u, mask,
+                reorder: bool = True):
     """Light::Illuminate with one shadow trace (lights.h:46-64,
     PointLight.cpp:7-18). Returns (irradiance (N,3), lanes that issued a
     real shadow query)."""
@@ -215,7 +220,8 @@ def _illuminate(pack, cfg: RenderConfig, lidx, p, u, mask):
                            _vec(_MISS_D, p))
     t_max = torch.where(cand, torch.where(is_point, 1.0, BIG), 0.0)
     occ = trace_shadow(pack, shadow_o, shadow_d, t_max, cfg.shadow_bias,
-                       plane_extent_bug=cfg.parity_plane_shadow_bug)
+                       plane_extent_bug=cfg.parity_plane_shadow_bug,
+                       reorder=reorder)
     vis = torch.where(occ & cand, 0.0, 1.0)[:, None]
     irr_point = torch.where((rr == 0.0)[:, None], BIG,
                             intensity * vis / torch.clamp_min(rr, 1e-30)[:, None])
@@ -226,14 +232,14 @@ def _illuminate(pack, cfg: RenderConfig, lidx, p, u, mask):
 
 
 def _direct_light(pack, cfg: RenderConfig, surf: Surface, mtl: Mtl,
-                  new_spec_color, vn, vv, u, mask):
+                  new_spec_color, vn, vv, u, mask, reorder: bool = True):
     """PathTracing_DiffuseNSpecular (MtlBlinn.cpp:304-351), untextured:
     (clamped direct term (N,3), shadow queries)."""
     lidx = _select_light(pack, u[:, 7])
     vl = _sample_in_light(pack, lidx, surf, mtl, new_spec_color, u)
     cos_theta = dot(vl, vn)
     irrad, n_shadow = _illuminate(pack, cfg, lidx, surf.p, u[:, 5:7],
-                                  mask & (cos_theta > 0))
+                                  mask & (cos_theta > 0), reorder)
     hn = torch.clamp_min(dot(normalize(vl + vv), vn), 0.0)
     brdf_cos = (mtl.diffuse * cos_theta[:, None]
                 + new_spec_color * safe_pow(hn, mtl.gloss)[:, None])
@@ -276,10 +282,12 @@ def _gi_sample(pack, cfg: RenderConfig, surf: Surface, mtl: Mtl,
 # ---------------------------------------------------------------------------
 
 
-def _shade_fused(pack, cfg: RenderConfig, o, d, hit, shade, u_tab) -> Shading:
+def _shade_fused(pack, cfg: RenderConfig, o, d, hit, shade, u_tab,
+                 reorder: bool = True) -> Shading:
     """The fused shade setup (kernel 3 on the card, its twin on the CPU);
     only the shadow trace and its visibility fold stay outside
-    (pathtracer.py:710-735). The main path's shade step."""
+    (pathtracer.py:710-735). The main path's shade step. `reorder` routes
+    the shadow trace (ops/trace.py:trace_route)."""
     n = o.shape[0]
     fo = shade_setup(pack, cfg, o, d, hit, shade, u_tab)
     surf = Surface(p=fo.p, n=fo.n, uvw=o.new_zeros((n, 3)),
@@ -287,7 +295,8 @@ def _shade_fused(pack, cfg: RenderConfig, o, d, hit, shade, u_tab) -> Shading:
                    front=hit.front)
     occ = trace_shadow(pack, fo.shadow_o, fo.shadow_d, fo.shadow_tmax,
                        cfg.shadow_bias,
-                       plane_extent_bug=cfg.parity_plane_shadow_bug)
+                       plane_extent_bug=cfg.parity_plane_shadow_bug,
+                       reorder=reorder)
     vis = torch.where(occ & fo.gate, 0.0, 1.0)
     # The point-light r^2 == 0 branch keeps BIG whatever the visibility.
     irr = fo.irr * torch.where(fo.rr0, 1.0, vis)[:, None]
@@ -300,8 +309,8 @@ def _shade_fused(pack, cfg: RenderConfig, o, d, hit, shade, u_tab) -> Shading:
                    gi_env=_gi_env(pack, fo.gi_d, fo.gi_albedo))
 
 
-def _shade_unfused(pack, cfg: RenderConfig, o, d, hit, shade,
-                   u_tab) -> Shading:
+def _shade_unfused(pack, cfg: RenderConfig, o, d, hit, shade, u_tab,
+                   reorder: bool = True) -> Shading:
     """The same step from the separate functions (pathtracer.py:736-774,
     847-849): the JAX package's XLA shading path. The main path takes the
     fused kernel; this is the plain composition the tests hold it to, and
@@ -317,7 +326,7 @@ def _shade_unfused(pack, cfg: RenderConfig, o, d, hit, shade,
     fres = r0 + (1.0 - r0) * safe_pow(1.0 - cos_phi1, 5.0)
     new_spec = _clamp_white(mtl.specular + fres[:, None] * mtl.refraction)
     direct, n_shadow = _direct_light(pack, cfg, surf, mtl, new_spec, vn, vv,
-                                     u_tab[:, :8], shade)
+                                     u_tab[:, :8], shade, reorder)
     gi_o, gi_d, gi_albedo, gi_env = _gi_sample(pack, cfg, surf, mtl, new_spec,
                                                vn, vv, u_tab[:, 8:13])
     return Shading(surf=surf, direct=direct, n_shadow=n_shadow,
@@ -470,10 +479,13 @@ def _shade_level(pack, cfg: RenderConfig, tasks: Tasks, level: int, key):
     o = torch.where(act, tasks.o, _vec(_MISS_O, tasks.o))
     d = torch.where(act, tasks.d, _vec(_MISS_D, tasks.o))
 
-    hit = trace_closest(pack, o, d, "front")
+    # Level-0 camera rays arrive in scanline order, already coherent: the
+    # BVH kernels (pathtracer.py:683-688, 721-726).
+    reorder = level != 0
+    hit = trace_closest(pack, o, d, "front", reorder=reorder)
     shade = tasks.active & hit.hit
     u_tab = rng.uniform(rng.fold_in(key, 1), (n, 13))
-    sh = _shade_fused(pack, cfg, o, d, hit, shade, u_tab)
+    sh = _shade_fused(pack, cfg, o, d, hit, shade, u_tab, reorder)
     surf = sh.surf
 
     # --- refraction chain on compacted refractive lanes ---

@@ -2,7 +2,8 @@
 
 Slot order decides which lanes keep their RNG streams and which are
 dropped, so `partition_indices` reproduces the stable candidates-first
-order exactly (``argsort(~mask, stable=True)[:k]``).
+order exactly (``argsort(~mask, stable=True)[:k]``). `inverse_permutation`
+undoes the coherence sort of the grouped-stream traces (ops/trace.py).
 """
 
 from __future__ import annotations
@@ -23,3 +24,10 @@ def partition_indices(mask: torch.Tensor, k: int | None = None) -> torch.Tensor:
     out[pos] = torch.arange(n, device=mask.device)
     return out[:k]
 
+
+def inverse_permutation(perm: torch.Tensor) -> torch.Tensor:
+    """inv with inv[perm[i]] = i: a scatter of arange (compact.py)."""
+    inv = torch.empty_like(perm)
+    inv[perm] = torch.arange(perm.shape[0], dtype=perm.dtype,
+                             device=perm.device)
+    return inv

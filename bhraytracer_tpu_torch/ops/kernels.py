@@ -1,9 +1,10 @@
 """Build, load and count the hand-written CUDA kernels (csrc/*.cu).
 
-The sources are compiled with nvcc into one shared library with a plain C
-interface and loaded with ctypes. The build runs at first use, into the
-checkout's git-ignored `build/` directory, under a name keyed by a hash of
-the sources and flags: an edited source is rebuilt, a built one is reused.
+The sources are compiled with nvcc, one process per source, all started
+together, and linked into one shared library with a plain C interface,
+loaded with ctypes. The build runs at first use, into the checkout's
+git-ignored `build/` directory, under a name keyed by a hash of the sources
+and flags: an edited source is rebuilt, a built one is reused.
 
 `-fmad=false` and IEEE `sqrtf`/division (no `--use_fast_math`) keep every
 multiply and add rounded on its own, as the plain PyTorch twins compute
@@ -24,6 +25,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 
 import torch
@@ -32,7 +34,7 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(CSRC)), "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC"]
+              "-fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC"]
 
 LAUNCHES: collections.Counter = collections.Counter()
 
@@ -55,6 +57,22 @@ _SIGNATURES = {
     # mtl_tab, n_mtl, light_tab, n_lights, bias, n, out, stream
     "bhrt_shade_setup": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _P, _I, _P, _I,
                          _F, _I, _P, _P],
+    # nodes, faces, sph, n_sph, pln, n_pln, o, d, t_init, side, n, t_out,
+    # key_out, counts (or NULL), stream
+    "bhrt_bvh_closest": [_P, _P, _P, _I, _P, _I, _P, _P, _P, _I, _I, _P, _P,
+                         _P, _P],
+    # nodes, faces, sph, n_sph, pln, n_pln, o, d, t_max, t_min, ana_bias,
+    # plane_world_bug, n, occ_out, counts (or NULL), stream
+    "bhrt_bvh_anyhit": [_P, _P, _P, _I, _P, _I, _P, _P, _P, _F, _F, _I, _I,
+                        _P, _P, _P],
+    # rows, boxes, n_groups, group, sph, n_sph, pln, n_pln, o, d, t_init,
+    # side, n, t_out, key_out, stream
+    "bhrt_stream_closest_hbm": [_P, _P, _I, _I, _P, _I, _P, _I, _P, _P, _P,
+                                _I, _I, _P, _P, _P],
+    # rows, boxes, n_groups, group, sph, n_sph, pln, n_pln, o, d, t_max,
+    # t_min, ana_bias, plane_world_bug, n, occ_out, stream
+    "bhrt_stream_anyhit_hbm": [_P, _P, _I, _I, _P, _I, _P, _I, _P, _P, _P,
+                               _F, _F, _I, _I, _P, _P],
 }
 
 
@@ -81,24 +99,36 @@ def _nvcc() -> str:
 
 def build() -> str:
     """Compile the kernels if the hashed library is missing; returns its
-    path. nvcc's output (with -Xptxas -v: registers, shared memory and
-    spills per kernel) is kept in BUILD_LOG and written beside the library
-    as `<library>.log`."""
+    path. One nvcc per source, all at once, then one link. nvcc's output
+    (with -Xptxas -v: registers, shared memory and spills per kernel) is
+    kept in BUILD_LOG and written beside the library as `<library>.log`."""
     global BUILD_LOG
     so = library_path()
     if os.path.exists(so):
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp"
+    nvcc = _nvcc()
     cus = [s for s in _sources() if s.endswith(".cu")]
-    r = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *cus],
-                       capture_output=True, text=True)
-    BUILD_LOG = r.stdout + r.stderr
-    if r.returncode:
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{BUILD_LOG}")
-    with open(f"{so}.log", "w") as f:
-        f.write(BUILD_LOG)
-    os.replace(tmp, so)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, os.path.basename(cu) + ".o") for cu in cus]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, cu],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for cu, obj in zip(cus, objs)]
+        logs = [f"== {os.path.basename(cu)} ==\n{p.communicate()[0]}"
+                for cu, p in zip(cus, procs)]
+        ok = all(p.returncode == 0 for p in procs)
+        if ok:
+            r = subprocess.run([nvcc, "-shared", "-o", f"{tmp}/lib.so", *objs],
+                               capture_output=True, text=True)
+            logs.append(f"== link ==\n{r.stdout}{r.stderr}")
+            ok = r.returncode == 0
+        BUILD_LOG = "\n".join(logs)
+        if not ok:
+            raise RuntimeError(f"nvcc failed:\n{BUILD_LOG}")
+        with open(f"{so}.log", "w") as f:
+            f.write(BUILD_LOG)
+        os.replace(f"{tmp}/lib.so", so)
     return so
 
 
@@ -118,7 +148,7 @@ def lib():
 
 def launch(name: str, *args) -> None:
     """Launch `name` on the current CUDA stream and count it. Pointer
-    arguments are tensors (passed by data_ptr) or ints."""
+    arguments are tensors (passed by data_ptr), ints, or None (NULL)."""
     fn = getattr(lib(), name)
     conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     err = fn(*conv, torch.cuda.current_stream().cuda_stream)
@@ -130,3 +160,13 @@ def launch(name: str, *args) -> None:
 def require(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(msg)
+
+
+def check_counts(counts, o, shape: tuple) -> None:
+    """A kernel's optional work-count output: None, or a contiguous int32
+    tensor of `shape` on the rays' CUDA device (the twins count nothing)."""
+    if counts is not None:
+        require(o.device.type == "cuda", "counts: kernels only")
+        require(counts.dtype == torch.int32 and counts.is_contiguous()
+                and tuple(counts.shape) == shape and counts.device == o.device,
+                f"counts: {shape} int32 on the rays' device expected")

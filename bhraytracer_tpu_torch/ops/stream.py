@@ -218,15 +218,18 @@ def _blocks(n_rays, n_faces):
             yield slice(r0, r0 + rc), f0, slice(f0, f0 + fc)
 
 
-def stream_closest_ref(rows, sph, pln, o, d, t_init, side: int):
-    """Plain PyTorch twin of the closest-hit kernel."""
+def closest_over_faces(face_test, rows, sph, pln, o, d, t_init, side: int):
+    """(t, key) of the closest hit of every ray over every row of `rows`
+    under `face_test` (R rays x C rows -> (t, front, ok)) and over the
+    analytic tables, seeded by t_init: lowest face among equal t, a mesh
+    face replacing the analytic winner only when strictly closer."""
     ana_t, ana_code, ana_front = _analytic_closest(side, sph, pln, o, d,
                                                    t_init)
     best_t = ana_t.clone()
     best_key = torch.full_like(ana_code, BIGI)
     inv_dlen = _inv_dlen(d)
     for rs, f0, fs in _blocks(o.shape[0], rows.shape[0]):
-        t, front, ok = _face_test(rows[fs], o[rs], d[rs], inv_dlen[rs], side)
+        t, front, ok = face_test(rows[fs], o[rs], d[rs], inv_dlen[rs], side)
         tc = torch.where(ok, t, BIG)
         cmin, cidx = tc.min(dim=1)  # first (lowest-face) minimum
         cfront = front.gather(1, cidx[:, None])[:, 0].to(torch.int32)
@@ -239,16 +242,29 @@ def stream_closest_ref(rows, sph, pln, o, d, t_init, side: int):
             torch.where(mesh, best_key, ana_code * 2 + ana_front))
 
 
-def stream_anyhit_ref(rows, sph, pln, o, d, t_max, t_min: float,
+def anyhit_over_faces(face_test, rows, sph, pln, o, d, t_max, t_min: float,
                       ana_bias: float, plane_world_bug: bool):
-    """Plain PyTorch twin of the occlusion kernel."""
+    """Occlusion of every ray by a front-facing row of `rows` in
+    (t_min, t_max) or by an analytic occluder in (ana_bias, t_max)."""
     occ = _analytic_anyhit(sph, pln, o, d, t_max, ana_bias, plane_world_bug)
     inv_dlen = _inv_dlen(d)
     for rs, _, fs in _blocks(o.shape[0], rows.shape[0]):
-        t, _, ok = _face_test(rows[fs], o[rs], d[rs], inv_dlen[rs], 0)
+        t, _, ok = face_test(rows[fs], o[rs], d[rs], inv_dlen[rs], 0)
         hit = ok & (t > t_min) & (t < t_max[rs, None])
         occ[rs] |= hit.any(dim=1)
     return occ
+
+
+def stream_closest_ref(rows, sph, pln, o, d, t_init, side: int):
+    """Plain PyTorch twin of the closest-hit kernel."""
+    return closest_over_faces(_face_test, rows, sph, pln, o, d, t_init, side)
+
+
+def stream_anyhit_ref(rows, sph, pln, o, d, t_max, t_min: float,
+                      ana_bias: float, plane_world_bug: bool):
+    """Plain PyTorch twin of the occlusion kernel."""
+    return anyhit_over_faces(_face_test, rows, sph, pln, o, d, t_max, t_min,
+                             ana_bias, plane_world_bug)
 
 
 # ---------------------------------------------------------------------------
@@ -256,7 +272,10 @@ def stream_anyhit_ref(rows, sph, pln, o, d, t_max, t_min: float,
 # ---------------------------------------------------------------------------
 
 
-def _check(rows, sph, pln, o, d, aux):
+def check_inputs(rows, sph, pln, o, d, aux, row_multiple: int = ROW_PAD):
+    """Raise ValueError on inputs the trace kernels do not take: float32,
+    contiguous, one device, (R,16) face rows with R a multiple of
+    row_multiple, at most MAX_ANALYTIC rows per analytic table."""
     dev = o.device
     for name, x, shape in (("rows", rows, (rows.shape[0], 16)),
                            ("sph", sph, (sph.shape[0], 12)),
@@ -268,8 +287,8 @@ def _check(rows, sph, pln, o, d, aux):
         kernels.require(x.device == dev, f"{name}: on {x.device}, rays on {dev}")
         kernels.require(tuple(x.shape) == shape, f"{name}: shape {tuple(x.shape)}")
         kernels.require(x.is_contiguous(), f"{name}: not contiguous")
-    kernels.require(rows.shape[0] % ROW_PAD == 0,
-                    f"rows: {rows.shape[0]} not a multiple of {ROW_PAD}")
+    kernels.require(rows.shape[0] % row_multiple == 0,
+                    f"rows: {rows.shape[0]} not a multiple of {row_multiple}")
     kernels.require(sph.shape[0] <= MAX_ANALYTIC and pln.shape[0] <= MAX_ANALYTIC,
                     "more than 32 spheres or planes")
     kernels.require(dev.type in ("cpu", "cuda"), f"unsupported device {dev}")
@@ -278,7 +297,7 @@ def _check(rows, sph, pln, o, d, aux):
 def stream_closest(rows, sph, pln, o, d, t_init, side: str):
     """Closest hit of (N,3) rays o, d over the stream rows and the analytic
     tables, seeded by t_init: (t (N,) f32, key (N,) i32)."""
-    _check(rows, sph, pln, o, d, t_init)
+    check_inputs(rows, sph, pln, o, d, t_init)
     s = SIDES[side]
     if o.device.type == "cpu":
         return stream_closest_ref(rows, sph, pln, o, d, t_init, s)
@@ -296,7 +315,7 @@ def stream_anyhit(rows, sph, pln, o, d, t_max, t_min: float,
                   ana_bias: float = 0.0, plane_world_bug: bool = False):
     """Occlusion (N,) bool of (N,3) rays within t_max (mesh faces beyond
     t_min, analytic occluders beyond ana_bias)."""
-    _check(rows, sph, pln, o, d, t_max)
+    check_inputs(rows, sph, pln, o, d, t_max)
     if o.device.type == "cpu":
         return stream_anyhit_ref(rows, sph, pln, o, d, t_max, t_min,
                                  ana_bias, plane_world_bug)

@@ -1,11 +1,22 @@
 """Scene tracing: closest hit, occlusion, and hit resolution.
 
-One route: every trace goes through the stream kernels of ops/stream.py,
-the analytic instances folded in (the CUDA kernels on the card, their
-twins on the CPU). The JAX package routes level-0 camera rays through its
-packet BVH kernel instead; brute-force streaming is exact and per-lane
-results do not depend on ray order, so only equal-t seam ties can differ
-(bhraytracer_tpu/ops/trace.py:486-493, pallas_stream.py:31-34).
+Every trace is routed as bhraytracer_tpu/ops/trace.py:486-767 routes it
+(`trace_route`), with the analytic instances folded into each kernel:
+
+  - mesh scenes with reorder=False (level-0 camera rays and their shadow
+    rays, which arrive coherent) go through the BVH kernels (ops/bvh.py);
+  - reorder=True on meshes of at most STREAM_MAX_FACES faces goes through
+    the flat stream kernels (ops/stream.py);
+  - reorder=True on bigger meshes is sorted by `coherence_order`, traced by
+    the grouped stream kernels (ops/stream_hbm.py) and unsorted
+    (trace.py:95-105, 126-137);
+  - mesh-free scenes keep the flat stream kernel with the pack's one
+    zero face row (the JAX package runs its analytic kernels there).
+
+On the card these are hand-written CUDA kernels; on the CPU their twins.
+All routes return the (t, key) contract of ops/stream.py, decoded by
+`decode_key`. The reference's XLA traversals and treelet scans are TPU
+forms and have no counterpart.
 
 `resolve_hit` recomputes the surface interaction from the discrete hit ids
 (bhraytracer_tpu/ops/trace.py:793-995) for the refraction chain.
@@ -17,6 +28,8 @@ from typing import NamedTuple
 
 import torch
 
+from bhraytracer_tpu_torch.ops.bvh import STACK_DEPTH, bvh_anyhit, bvh_closest
+from bhraytracer_tpu_torch.ops.compact import inverse_permutation
 from bhraytracer_tpu_torch.ops.intersect import triangle_areas
 from bhraytracer_tpu_torch.ops.linalg import (
     BIG,
@@ -32,6 +45,12 @@ from bhraytracer_tpu_torch.ops.stream import (
     instance_table,
     stream_anyhit,
     stream_closest,
+)
+from bhraytracer_tpu_torch.ops.stream_hbm import (
+    GROUP,
+    group_tables,
+    stream_anyhit_hbm,
+    stream_closest_hbm,
 )
 
 KIND_SPHERE, KIND_PLANE, KIND_MESH = 0, 1, 2
@@ -65,12 +84,52 @@ def analytic_tables(pack):
 
 
 def check_traceable(pack) -> None:
-    """The slice's stream route takes scenes up to STREAM_MAX_FACES faces."""
-    if pack.face_v.shape[0] > STREAM_MAX_FACES:
+    """Every scene routes somewhere; the BVH kernels refuse a tree deeper
+    than their per-ray stack."""
+    if pack.n_msh and pack.bvh_depth + 2 > STACK_DEPTH:
         raise NotImplementedError(
-            f"{pack.face_v.shape[0]} faces: scenes above {STREAM_MAX_FACES} "
-            "faces need the BVH / grouped-stream trace kernels "
-            "(ROADMAP Queue 1 item 9, Queue 2 items 1-2)")
+            f"BVH depth {pack.bvh_depth}: the BVH kernels' stack holds "
+            f"trees of depth up to {STACK_DEPTH - 2}")
+
+
+def trace_route(pack, reorder: bool) -> str:
+    """The kernel pair a trace takes: "bvh", "stream" or "stream_hbm"
+    (_stream_enabled / _stream_uses_hbm, bhraytracer_tpu/ops/trace.py:
+    186-223, for a pack without treelets)."""
+    if not pack.n_msh:
+        return "stream"
+    if not reorder:
+        return "bvh"
+    if pack.face_v.shape[0] <= STREAM_MAX_FACES:
+        return "stream"
+    return "stream_hbm"
+
+
+# Coarse origin cells per axis of the coherence key (pallas_bvh.py:52).
+CELL_RES = 4
+
+
+def coherence_order(pack, o, d, t_init) -> torch.Tensor:
+    """Stable sort order of the rays (_coherence_order, pallas_bvh.py:
+    274-309): lanes that miss the root box, or meet it beyond t_init, go
+    last; the others group by direction octant, then by a coarse origin
+    cell of the root box."""
+    bmin, bmax = pack.bvh_bmin[0], pack.bvh_bmax[0]
+    inv = 1.0 / torch.where(d == 0.0, 1e-30, d)
+    ta = (bmin[None, :] - o) * inv
+    tb = (bmax[None, :] - o) * inv
+    tlo = torch.minimum(ta, tb).amax(1)
+    thi = torch.maximum(ta, tb).amin(1)
+    live = (tlo <= thi) & (thi >= 0.0) & (tlo < t_init)
+    oct_ = ((d[:, 0] > 0).to(torch.int32) + 2 * (d[:, 1] > 0).to(torch.int32)
+            + 4 * (d[:, 2] > 0).to(torch.int32))
+    r = CELL_RES
+    ext = torch.clamp_min(bmax - bmin, 1e-6)
+    cell = torch.clamp((o - bmin[None, :]) / ext[None, :] * r, 0.0, r - 1.0)
+    cell = cell.to(torch.int32)
+    cell_id = cell[:, 0] + r * cell[:, 1] + r * r * cell[:, 2]
+    key = torch.where(live, oct_ * (r * r * r) + cell_id, 8 * r * r * r)
+    return torch.argsort(key, stable=True)
 
 
 def decode_key(pack, t, key) -> Hit:
@@ -91,30 +150,54 @@ def decode_key(pack, t, key) -> Hit:
                hit=t < BIG)
 
 
-def trace_closest(pack, o, d, hit_side: str = "front") -> Hit:
-    """Closest hit over all instances. o, d: (N,3) world rays."""
+def trace_closest(pack, o, d, hit_side: str = "front",
+                  reorder: bool = True) -> Hit:
+    """Closest hit over all instances. o, d: (N,3) world rays. reorder=False
+    takes the BVH kernel, for rays that arrive coherent (trace_route)."""
     sph, pln = analytic_tables(pack)
     o, d = o.contiguous(), d.contiguous()
     t_init = torch.full((o.shape[0],), BIG, dtype=torch.float32,
                         device=o.device)
-    t, key = stream_closest(pack.stream_rows, sph, pln, o, d, t_init,
-                            hit_side)
+    route = trace_route(pack, reorder)
+    if route == "bvh":
+        t, key = bvh_closest(pack.bvh_nodes, pack.bvh_faces, pack.bvh_depth,
+                             sph, pln, o, d, t_init, hit_side)
+    elif route == "stream_hbm":
+        order = coherence_order(pack, o, d, t_init)
+        rows, boxes = group_tables(pack, GROUP)
+        t, key = stream_closest_hbm(rows, boxes, GROUP, sph, pln, o[order],
+                                    d[order], t_init[order], hit_side)
+        inv = inverse_permutation(order)
+        t, key = t[inv], key[inv]
+    else:
+        t, key = stream_closest(pack.stream_rows, sph, pln, o, d, t_init,
+                                hit_side)
     return decode_key(pack, t, key)
 
 
 def trace_shadow(pack, o, d, t_max, shadow_bias: float,
-                 plane_extent_bug: bool = False):
+                 plane_extent_bug: bool = False, reorder: bool = True):
     """Boolean occlusion (ShadowRayRecursive, GenLight.cpp:15-69): front
     mesh faces in (MESH_SHADOW_BIAS, t_max), analytic occluders in
     (shadow_bias, t_max). `plane_extent_bug` reproduces the reference's
-    plane frame mix-up (GenLight.cpp:37-40)."""
+    plane frame mix-up (GenLight.cpp:37-40). Routed as trace_closest."""
     sph, pln = analytic_tables(pack)
+    o, d = o.contiguous(), d.contiguous()
     t_max = torch.as_tensor(t_max, dtype=torch.float32, device=o.device)
     t_max = t_max.expand(o.shape[0]).contiguous()
-    return stream_anyhit(pack.stream_rows, sph, pln, o.contiguous(),
-                         d.contiguous(), t_max, MESH_SHADOW_BIAS,
-                         ana_bias=shadow_bias,
-                         plane_world_bug=plane_extent_bug)
+    kw = dict(ana_bias=shadow_bias, plane_world_bug=plane_extent_bug)
+    route = trace_route(pack, reorder)
+    if route == "bvh":
+        return bvh_anyhit(pack.bvh_nodes, pack.bvh_faces, pack.bvh_depth, sph,
+                          pln, o, d, t_max, MESH_SHADOW_BIAS, **kw)
+    if route == "stream_hbm":
+        order = coherence_order(pack, o, d, t_max)
+        rows, boxes = group_tables(pack, GROUP)
+        occ = stream_anyhit_hbm(rows, boxes, GROUP, sph, pln, o[order],
+                                d[order], t_max[order], MESH_SHADOW_BIAS, **kw)
+        return occ[inverse_permutation(order)]
+    return stream_anyhit(pack.stream_rows, sph, pln, o, d, t_max,
+                         MESH_SHADOW_BIAS, **kw)
 
 
 def resolve_hit(pack, o, d, hit: Hit) -> Surface:

@@ -20,13 +20,20 @@ import numpy as np
 
 from bhraytracer_tpu_torch.accel.bvh import build_bvh
 from bhraytracer_tpu_torch.scene import desc as D
-from bhraytracer_tpu_torch.scene.pack import ScenePack, pack_from_numpy
+from bhraytracer_tpu_torch.scene.pack import (
+    ScenePack,
+    pack_from_numpy,
+    resolve_device,
+)
 
 _LIGHT_KIND = {"ambient": 0, "direct": 1, "point": 2}
 
 
 def compile_scene(sd: D.SceneDesc, leaf_size: int = 4,
                   device=None) -> ScenePack:
+    """The pack of `sd` on `device`: the card unless the caller asks for
+    the CPU (`device="cpu"`); without a card the default raises."""
+    device = resolve_device(device)
     f32, i32 = np.float32, np.int32
 
     # ---------- materials ----------

@@ -2,10 +2,15 @@
 
 Field names and layouts are those of bhraytracer_tpu/scene/pack.py, so the
 parity tests compare like with like, minus the TPU packet kernel's row
-tables (`pallas_nodes`, `pallas_faces`, `treelets`) and plus the one table
-the port's trace kernels read, `stream_rows`. The pack plays the part of
-the model's weights: `pack_from_numpy` carries the JAX package's pack
-across, and `compile_scene` builds the same arrays from a SceneDesc.
+tables (`pallas_nodes`, `pallas_faces`, `treelets`) and plus the tables the
+port's trace kernels read, derived from the world triangles and the BVH:
+`stream_rows` (ops/stream.py), `bvh_nodes` and `bvh_faces` (ops/bvh.py).
+The pack plays the part of the model's weights: `pack_from_numpy` carries
+the JAX package's pack across, and `compile_scene` builds the same arrays
+from a SceneDesc.
+
+A pack lives on the card unless the caller asks for the CPU
+(`device="cpu"`); without a card the default raises.
 """
 
 from __future__ import annotations
@@ -56,6 +61,10 @@ class ScenePack:
     resolve_rows: torch.Tensor  # (F,32)
     # Affine-barycentric stream rows (ops/stream.py), padded with zero rows.
     stream_rows: torch.Tensor  # (F_pad,16)
+    # BVH kernel rows (ops/bvh.py): [bmin bmax | left count | code | pad]
+    # and, in leaf order, [v0 v1 v2 | n | n.v0 | 1/|n| | pad].
+    bvh_nodes: torch.Tensor  # (B,16)
+    bvh_faces: torch.Tensor  # (F,16)
 
     # ---- materials ----
     mtl_diffuse: torch.Tensor  # (M,3)
@@ -103,6 +112,10 @@ class ScenePack:
     n_lights: int = 0
     has_file_tex: bool = False
     n_texmaps: int = 0
+    # Tables derived at first use (ops/stream_hbm.py:group_tables); a
+    # dataclasses.replace starts an empty one.
+    cache: dict = dataclasses.field(default_factory=dict, init=False,
+                                    repr=False, compare=False)
 
     @property
     def device(self) -> torch.device:
@@ -111,8 +124,21 @@ class ScenePack:
 
 _META = ("bvh_depth", "n_sph", "n_pln", "n_msh", "n_lights", "has_file_tex",
          "n_texmaps")
+_DERIVED = ("stream_rows", "bvh_nodes", "bvh_faces")
 _DATA = tuple(f.name for f in dataclasses.fields(ScenePack)
-              if f.name not in _META and f.name != "stream_rows")
+              if f.name not in _META + _DERIVED + ("cache",))
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device a pack is built on: the card unless `device` says
+    otherwise. Raises where the default is asked for and no CUDA device
+    exists (the CPU is taken only when asked for)."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to build the "
+                           "scene on the CPU")
+    return torch.device("cuda")
 
 
 def face_planes(wtri_v0, wtri_v1, wtri_v2):
@@ -124,13 +150,49 @@ def face_planes(wtri_v0, wtri_v1, wtri_v2):
     return fn_, (1.0 / nlen).astype(f32)
 
 
+def bvh_tables(bvh_bmin, bvh_bmax, bvh_left, bvh_count, v0, v1, v2):
+    """(nodes (B,16), faces (F,16)) float32 rows of the BVH kernels, computed
+    as bhraytracer_tpu/scene/compile.py:191-223 computes its single-shot
+    packet tables, from the tree and the world triangles in leaf order (so
+    a JAX pack with treelets gives the same tables as one without)."""
+    f32 = np.float32
+    nodes = np.zeros((bvh_bmin.shape[0], 16), f32)
+    nodes[:, 0:3] = bvh_bmin
+    nodes[:, 3:6] = bvh_bmax
+    nodes[:, 6] = bvh_left.astype(f32)
+    nodes[:, 7] = bvh_count.astype(f32)
+    # Ordered-descent code: the axis that best separates the two child
+    # boxes' centres, + 3 when the left child sits on the high side.
+    internal = bvh_count == 0
+    if internal.any():
+        li = bvh_left[internal]
+        c_l = 0.5 * (bvh_bmin[li] + bvh_bmax[li])
+        c_r = 0.5 * (bvh_bmin[li + 1] + bvh_bmax[li + 1])
+        diff = c_r - c_l
+        axis = np.argmax(np.abs(diff), axis=1)
+        flip = diff[np.arange(diff.shape[0]), axis] < 0.0
+        nodes[internal, 8] = (axis + 3 * flip).astype(f32)
+    faces = np.zeros((v0.shape[0], 16), f32)
+    faces[:, 0:3] = v0
+    faces[:, 3:6] = v1
+    faces[:, 6:9] = v2
+    fn_, inv_nlen = face_planes(v0, v1, v2)
+    faces[:, 9:12] = fn_
+    faces[:, 12] = np.einsum("ij,ij->i", fn_, v0).astype(f32)
+    faces[:, 13] = inv_nlen
+    return nodes, faces
+
+
 def pack_from_numpy(d: dict, device=None) -> ScenePack:
-    """Build the port's pack from the JAX pack as numpy arrays.
+    """Build the port's pack from the JAX pack as numpy arrays, on `device`
+    (the card by default, see resolve_device).
 
     `d` maps every field of the JAX ScenePack to a numpy array (as
     `jax.tree.map(np.asarray, pack)` gives) or, for the static fields, to
     an int; fields the port has no use for (`pallas_*`, `treelets`) are
-    ignored. `stream_rows` is derived from the world triangles."""
+    ignored. The trace tables are derived from the world triangles and the
+    tree."""
+    device = resolve_device(device)
     t = {k: torch.from_numpy(np.array(d[k], order="C")).to(device)
          for k in _DATA}
     v0, v1, v2 = (np.array(d[k], np.float32)
@@ -138,6 +200,10 @@ def pack_from_numpy(d: dict, device=None) -> ScenePack:
     fn_, inv_nlen = face_planes(v0, v1, v2)
     rows = stream_table(
         *(torch.from_numpy(x).to(device) for x in (v0, v1, v2, fn_, inv_nlen)))
+    nodes, faces = bvh_tables(*(np.asarray(d[k]) for k in (
+        "bvh_bmin", "bvh_bmax", "bvh_left", "bvh_count")), v0, v1, v2)
     meta = {k: (bool(d[k]) if k == "has_file_tex" else int(d[k]))
             for k in _META}
-    return ScenePack(**t, stream_rows=rows, **meta)
+    return ScenePack(**t, stream_rows=rows,
+                     bvh_nodes=torch.from_numpy(nodes).to(device),
+                     bvh_faces=torch.from_numpy(faces).to(device), **meta)

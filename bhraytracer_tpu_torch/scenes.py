@@ -1,10 +1,13 @@
-"""The slice's scenes, built from SceneDesc values equal to the JAX
+"""The port's scenes, built from SceneDesc values equal to the JAX
 package's: `tiny_scene` is `__graft_entry__._tiny_scene` (two spheres, one
 of them glass with ior 1.52, a ground plane, a point light of size 0.5 and
-a direct light) and `bench_scene` is `bench._builtin_bench_scene` (the
-same plus assets/Resource/Data/teapot.obj at scale 0.25 translated by
-(0, 2.5, 0)). Both return (pack, camera); the camera is 64x48 until the
-caller sets its width and height.
+a direct light), `bench_scene` is `bench._builtin_bench_scene` (the same
+plus assets/Resource/Data/teapot.obj, 1,408 faces, at scale 0.25
+translated by (0, 2.5, 0)) and `bigmesh_scene` is the scene of
+`bench._bigmesh_leg` (the same with teapot_hires.obj, 111,616 faces, in
+the teapot's place). Each returns (pack, camera), the pack on the card
+unless `device` says otherwise; the camera is 64x48 until the caller sets
+its width and height.
 """
 
 from __future__ import annotations
@@ -17,8 +20,10 @@ from bhraytracer_tpu_torch.scene import desc as D
 from bhraytracer_tpu_torch.scene.compile import compile_scene
 from bhraytracer_tpu_torch.scene.obj_loader import load_obj
 
-TEAPOT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                      "assets", "Resource", "Data", "teapot.obj")
+_DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                     "assets", "Resource", "Data")
+TEAPOT = os.path.join(_DATA, "teapot.obj")
+TEAPOT_HIRES = os.path.join(_DATA, "teapot_hires.obj")
 
 
 def tiny_scene_desc() -> D.SceneDesc:
@@ -70,15 +75,24 @@ def tiny_scene_desc() -> D.SceneDesc:
     return sd
 
 
-def bench_scene_desc() -> D.SceneDesc:
+def _with_teapot(path: str, name: str) -> D.SceneDesc:
     sd = tiny_scene_desc()
-    sd.meshes.append(load_obj(TEAPOT))
+    sd.meshes.append(load_obj(path))
     t = D.Transform()
     t.scale(0.25, 0.25, 0.25)
     t.translate(np.array([0.0, 2.5, 0.0]))
-    sd.nodes.append(D.NodeDesc(kind="mesh", name="teapot", transform=t,
+    sd.nodes.append(D.NodeDesc(kind="mesh", name=name, transform=t,
                                material=0, mesh=len(sd.meshes) - 1))
     return sd
+
+
+def bench_scene_desc() -> D.SceneDesc:
+    return _with_teapot(TEAPOT, "teapot")
+
+
+def bigmesh_scene_desc() -> D.SceneDesc:
+    """bench._bigmesh_leg's scene (bench.py:458-466)."""
+    return _with_teapot(TEAPOT_HIRES, "hires")
 
 
 def tiny_scene(device=None):
@@ -88,4 +102,9 @@ def tiny_scene(device=None):
 
 def bench_scene(device=None):
     sd = bench_scene_desc()
+    return compile_scene(sd, device=device), sd.camera
+
+
+def bigmesh_scene(device=None):
+    sd = bigmesh_scene_desc()
     return compile_scene(sd, device=device), sd.camera

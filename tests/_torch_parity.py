@@ -18,14 +18,43 @@ def pack_dict(jpack) -> dict:
             for v in [getattr(jpack, f.name)]}
 
 
+def teapot_desc(obj: str):
+    """The JAX SceneDesc of the tiny scene plus assets/Resource/Data/<obj>
+    at scale 0.25 moved by (0, 2.5, 0): bench._builtin_bench_scene's scene
+    for teapot.obj, bench._bigmesh_leg's (bench.py:458-466) for
+    teapot_hires.obj (111,616 faces)."""
+    import os
+
+    from bench import _tiny_scene_desc
+    from bhraytracer_tpu.scene import desc as D
+    from bhraytracer_tpu.scene.obj_loader import load_obj
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sd = _tiny_scene_desc()
+    sd.meshes.append(load_obj(os.path.join(repo, "assets", "Resource", "Data",
+                                           obj)))
+    t = D.Transform()
+    t.scale(0.25, 0.25, 0.25)
+    t.translate(np.array([0.0, 2.5, 0.0]))
+    sd.nodes.append(D.NodeDesc(kind="mesh", name="hires", transform=t,
+                               material=0, mesh=len(sd.meshes) - 1))
+    return sd
+
+
 @functools.lru_cache(maxsize=None)
 def jax_scene(name: str):
     """(pack, camera) of the JAX package: "tiny" is
-    __graft_entry__._tiny_scene, "bench" is bench._builtin_bench_scene."""
+    __graft_entry__._tiny_scene, "bench" is bench._builtin_bench_scene,
+    "bigmesh" is bench._bigmesh_leg's scene (a pack with treelets)."""
     if name == "tiny":
         from __graft_entry__ import _tiny_scene
 
         return _tiny_scene()
+    if name == "bigmesh":
+        from bhraytracer_tpu.scene.compile import compile_scene
+
+        sd = teapot_desc("teapot_hires.obj")
+        return compile_scene(sd), sd.camera
     from bench import _builtin_bench_scene
 
     return _builtin_bench_scene()
@@ -33,10 +62,10 @@ def jax_scene(name: str):
 
 @functools.lru_cache(maxsize=None)
 def port_pack(name: str):
-    """The port's pack carried across from the JAX pack."""
+    """The port's pack carried across from the JAX pack, on the CPU."""
     from bhraytracer_tpu_torch.scene.pack import pack_from_numpy
 
-    return pack_from_numpy(pack_dict(jax_scene(name)[0]))
+    return pack_from_numpy(pack_dict(jax_scene(name)[0]), device="cpu")
 
 
 @contextlib.contextmanager

@@ -1,24 +1,26 @@
 """The port's scene compiler and pack against the JAX package's: every
-field both packs share is array-equal on the slice's two scenes, and
-pack_from_numpy carries the JAX pack across unchanged."""
+field both packs share is array-equal on the port's scenes, pack_from_numpy
+carries the JAX pack across unchanged, and the BVH kernels' tables equal
+the JAX packet kernel's single-shot tables, with or without treelets."""
 
 import numpy as np
 import pytest
 import torch
 
 from bhraytracer_tpu_torch.scene.pack import _DATA, _META
-from bhraytracer_tpu_torch.scenes import bench_scene, tiny_scene
-from tests._torch_parity import jax_scene, port_pack
+from bhraytracer_tpu_torch.scenes import bench_scene, bigmesh_scene, tiny_scene
+from tests._torch_parity import jax_scene, pack_dict, port_pack, teapot_desc
 
 torch.set_num_threads(2)
 
-PORT_SCENES = {"tiny": tiny_scene, "bench": bench_scene}
+PORT_SCENES = {"tiny": tiny_scene, "bench": bench_scene,
+               "bigmesh": bigmesh_scene}
 
 
-@pytest.mark.parametrize("name", ["tiny", "bench"])
+@pytest.mark.parametrize("name", ["tiny", "bench", "bigmesh"])
 def test_compile_scene_matches_jax(name):
     jpack, jcam = jax_scene(name)
-    pack, cam = PORT_SCENES[name]()
+    pack, cam = PORT_SCENES[name](device="cpu")
     for k in _DATA:
         a, b = np.asarray(getattr(jpack, k)), getattr(pack, k).numpy()
         assert a.dtype == b.dtype and a.shape == b.shape, k
@@ -32,9 +34,9 @@ def test_compile_scene_matches_jax(name):
 
 @pytest.mark.parametrize("name", ["tiny", "bench"])
 def test_pack_from_numpy_round_trip(name):
-    pack, _ = PORT_SCENES[name]()
+    pack, _ = PORT_SCENES[name](device="cpu")
     carried = port_pack(name)
-    for k in _DATA + ("stream_rows",):
+    for k in _DATA + ("stream_rows", "bvh_nodes", "bvh_faces"):
         np.testing.assert_array_equal(getattr(carried, k).numpy(),
                                       getattr(pack, k).numpy(), err_msg=k)
     for k in _META:
@@ -54,3 +56,47 @@ def test_stream_rows_match_jax_table(name):
     ours = port_pack(name).stream_rows.numpy()
     assert ours.shape == rows.shape
     np.testing.assert_allclose(ours, rows, rtol=1e-5, atol=1e-6)
+
+
+def test_bvh_tables_match_jax_pallas_tables():
+    """bvh_nodes[:, :9] (bounds, left, count, descent code) and
+    bvh_faces[:, :14] (vertices, normal, n.v0, 1/|n|) against the JAX
+    packet kernel's pallas_nodes / pallas_faces on the bench pack (no
+    treelets): both are computed in numpy with the same formulas."""
+    jpack, _ = jax_scene("bench")
+    assert not jpack.treelets
+    pack = port_pack("bench")
+    np.testing.assert_array_equal(pack.bvh_nodes[:, :9].numpy(),
+                                  np.asarray(jpack.pallas_nodes)[:, :9])
+    np.testing.assert_array_equal(pack.bvh_faces[:, :14].numpy(),
+                                  np.asarray(jpack.pallas_faces)[:, :14])
+    internal = pack.bvh_nodes[:, 7] == 0
+    assert internal.any() and (pack.bvh_nodes[internal, 8] > 0).any()
+
+
+def test_bvh_tables_ignore_treelets():
+    """A JAX pack compiled with a small VMEM row budget carries per-treelet
+    padded tables; the port rebuilds its tables from the tree and the world
+    triangles in global face order, so they equal the bench pack's."""
+    from bhraytracer_tpu.scene.compile import compile_scene as j_compile
+    from bhraytracer_tpu_torch.scene.pack import pack_from_numpy
+
+    jpack = j_compile(teapot_desc("teapot.obj"), pallas_budget_rows=512)
+    assert len(jpack.treelets) > 1
+    ours = pack_from_numpy(pack_dict(jpack), device="cpu")
+    ref = port_pack("bench")
+    for k in ("bvh_nodes", "bvh_faces", "stream_rows"):
+        np.testing.assert_array_equal(getattr(ours, k).numpy(),
+                                      getattr(ref, k).numpy(), err_msg=k)
+
+
+def test_scenes_default_to_the_card():
+    """With no device the scenes are built on the card; where there is
+    none, asking for the default raises instead of taking the CPU."""
+    if torch.cuda.is_available():
+        pack, _ = tiny_scene()
+        assert pack.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            tiny_scene()
+    assert tiny_scene(device="cpu")[0].device.type == "cpu"
