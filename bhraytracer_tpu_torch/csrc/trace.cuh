@@ -184,12 +184,12 @@ __device__ __forceinline__ void setup_box_ray(const float* o, const float* d,
 // test's hit point and of this arithmetic, so a box that holds a face hit
 // at t is entered at t_lo <= t. Near and far planes are chosen by the
 // direction's sign, so an empty box (bmin > bmax) is never crossed.
-// ops/stream_hbm.py:_entry is the twin.
-__device__ __forceinline__ bool box_test(const float4 p, const float4 q,
-                                         const BoxRay& b, float& t_lo) {
-  const float mag = fmaxf(fmaxf(fmaxf(fabsf(p.x), fabsf(p.y)),
-                                fmaxf(fabsf(p.z), fabsf(p.w))),
-                          fmaxf(fabsf(q.x), fabsf(q.y)));
+// ops/cull.py:slab_entry is the twin. slab_test takes the box's coordinate
+// magnitude `mag`, box_mag(p, q); box_test computes it, the BVH kernels read
+// it from their table.
+__device__ __forceinline__ bool slab_test(const float4 p, const float4 q,
+                                          float mag, const BoxRay& b,
+                                          float& t_lo) {
   const float pad = kBoxEps * (mag + b.omag);
   const float lx = p.x - pad, hx = p.w + pad;
   const float ly = p.y - pad, hy = q.x + pad;
@@ -205,6 +205,17 @@ __device__ __forceinline__ bool box_test(const float4 p, const float4 q,
   const float hi = fminf(fminf(fx, fy), fz);
   t_lo = lo;
   return lo <= hi && hi >= 0.0f;
+}
+
+__device__ __forceinline__ float box_mag(const float4 p, const float4 q) {
+  return fmaxf(fmaxf(fmaxf(fabsf(p.x), fabsf(p.y)),
+                     fmaxf(fabsf(p.z), fabsf(p.w))),
+               fmaxf(fabsf(q.x), fabsf(q.y)));
+}
+
+__device__ __forceinline__ bool box_test(const float4 p, const float4 q,
+                                         const BoxRay& b, float& t_lo) {
+  return slab_test(p, q, box_mag(p, q), b, t_lo);
 }
 
 }  // namespace

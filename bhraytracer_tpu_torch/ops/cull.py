@@ -9,8 +9,8 @@ bounding box of each, and puts SUPER consecutive clusters under one super
 box. A ray enters a box it crosses at t_lo <= its best t so far (closest)
 or t_lo < t_max (occlusion), in the BVH kernels' slab test widened by
 BOX_EPS of the box's and the ray origin's coordinate magnitude
-(csrc/trace.cuh:box_test; `_entry` is its twin). The widening covers the
-rounding of the face test and of the slab arithmetic, so the cull drops
+(csrc/trace.cuh:box_test; `slab_entry` is its twin). The widening covers
+the rounding of the face test and of the slab arithmetic, so the cull drops
 nothing a ray could hit, and a culled trace equals the brute-force twins'
 key for key. `cluster_cull_ref` gives the (ray, cluster) pairs a kernel's
 cull keeps, for the tests.
@@ -105,28 +105,34 @@ def check_boxes(cluster_boxes, super_boxes, o) -> int:
 # ---------------------------------------------------------------------------
 
 
-def _entry(boxes, o, d):
-    """(t_lo, crosses), each (R, B), of rays o, d against boxes (B, 8): the
-    kernels' widened slab test (csrc/trace.cuh:box_test), in its
-    arithmetic."""
-    inv = 1.0 / torch.where(d == 0.0, 1e-30, d)
-    a = o.abs()
-    omag = torch.fmax(a[:, 0], torch.fmax(a[:, 1], a[:, 2]))
-    a = boxes.abs()
-    mag = torch.fmax(torch.fmax(torch.fmax(a[:, 0], a[:, 1]),
-                                torch.fmax(a[:, 2], a[:, 3])),
-                     torch.fmax(a[:, 4], a[:, 5]))
-    pad = BOX_EPS * (mag[None, :] + omag[:, None])
+def slab_entry(box, o, d):
+    """(t_lo, crosses) of rays o, d (columns o[..., k], d[..., k]) against
+    boxes (columns box[..., k], k < 6: bmin, bmax), every operand
+    broadcasting against the others: the kernels' widened slab test
+    (csrc/trace.cuh:box_mag and slab_test), in their arithmetic."""
+    inv = [1.0 / torch.where(d[..., k] == 0.0, 1e-30, d[..., k])
+           for k in range(3)]
+    a = [o[..., k].abs() for k in range(3)]
+    omag = torch.fmax(a[0], torch.fmax(a[1], a[2]))
+    a = [box[..., k].abs() for k in range(6)]
+    mag = torch.fmax(torch.fmax(torch.fmax(a[0], a[1]),
+                                torch.fmax(a[2], a[3])),
+                     torch.fmax(a[4], a[5]))
+    pad = BOX_EPS * (mag + omag)
     near, far = [], []
     for ax in range(3):
-        lo, hi = boxes[None, :, ax] - pad, boxes[None, :, 3 + ax] + pad
-        pos = inv[:, ax, None] >= 0.0
-        oa, ia = o[:, ax, None], inv[:, ax, None]
-        near.append((torch.where(pos, lo, hi) - oa) * ia)
-        far.append((torch.where(pos, hi, lo) - oa) * ia)
+        lo, hi = box[..., ax] - pad, box[..., 3 + ax] + pad
+        pos = inv[ax] >= 0.0
+        near.append((torch.where(pos, lo, hi) - o[..., ax]) * inv[ax])
+        far.append((torch.where(pos, hi, lo) - o[..., ax]) * inv[ax])
     t_lo = torch.fmax(torch.fmax(near[0], near[1]), near[2])
     t_hi = torch.fmin(torch.fmin(far[0], far[1]), far[2])
     return t_lo, (t_lo <= t_hi) & (t_hi >= 0.0)
+
+
+def _entry(boxes, o, d):
+    """(t_lo, crosses), each (R, B), of rays o, d against boxes (B, 8)."""
+    return slab_entry(boxes[None, :, :], o[:, None, :], d[:, None, :])
 
 
 def _live_pairs(boxes, o, d, admit):

@@ -61,11 +61,11 @@ _SIGNATURES = {
     # bias, n, vec_out, sca_out, mtl_out, flag_out, stream
     "bhrt_shade_setup": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I,
                          _I, _P, _I, _P, _I, _F, _I, _P, _P, _P, _P, _P],
-    # nodes, faces, sph, n_sph, pln, n_pln, o, d, t_init, side, n, t_out,
+    # pairs, faces, sph, n_sph, pln, n_pln, o, d, t_init, side, n, t_out,
     # key_out, counts (or NULL), stream
     "bhrt_bvh_closest": [_P, _P, _P, _I, _P, _I, _P, _P, _P, _I, _I, _P, _P,
                          _P, _P],
-    # nodes, faces, sph, n_sph, pln, n_pln, o, d, t_max, t_min, ana_bias,
+    # pairs, faces, sph, n_sph, pln, n_pln, o, d, t_max, t_min, ana_bias,
     # plane_world_bug, n, occ_out, counts (or NULL), stream
     "bhrt_bvh_anyhit": [_P, _P, _P, _I, _P, _I, _P, _P, _P, _F, _F, _I, _I,
                         _P, _P, _P],

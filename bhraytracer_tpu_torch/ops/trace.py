@@ -175,7 +175,7 @@ def trace_closest(pack, o, d, hit_side: str = "front",
     t_init = torch.full((o.shape[0],), BIG, dtype=torch.float32,
                         device=o.device)
     if route == "bvh":
-        t, key = bvh_closest(pack.bvh_nodes, pack.bvh_faces, pack.bvh_depth,
+        t, key = bvh_closest(pack.bvh_pairs, pack.bvh_faces, pack.bvh_depth,
                              sph, pln, o, d, t_init, hit_side)
     elif route == "stream_hbm":
         order = coherence_order(pack, o, d, t_init)
@@ -205,7 +205,7 @@ def trace_shadow(pack, o, d, t_max, shadow_bias: float,
     if route == "analytic":
         return analytic_anyhit(sph, pln, o, d, t_max, **kw)
     if route == "bvh":
-        return bvh_anyhit(pack.bvh_nodes, pack.bvh_faces, pack.bvh_depth, sph,
+        return bvh_anyhit(pack.bvh_pairs, pack.bvh_faces, pack.bvh_depth, sph,
                           pln, o, d, t_max, MESH_SHADOW_BIAS, **kw)
     if route == "stream_hbm":
         order = coherence_order(pack, o, d, t_max)

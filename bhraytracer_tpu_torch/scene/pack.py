@@ -4,7 +4,7 @@ Field names and layouts are those of bhraytracer_tpu/scene/pack.py, so the
 parity tests compare like with like, minus the TPU packet kernel's row
 tables (`pallas_nodes`, `pallas_faces`, `treelets`) and plus the tables the
 port's trace kernels read, derived from the world triangles and the BVH:
-`stream_rows` (ops/stream.py), `bvh_nodes` and `bvh_faces` (ops/bvh.py).
+`stream_rows` (ops/stream.py), `bvh_pairs` and `bvh_faces` (ops/bvh.py).
 The pack plays the part of the model's weights: `pack_from_numpy` carries
 the JAX package's pack across, and `compile_scene` builds the same arrays
 from a SceneDesc.
@@ -20,6 +20,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from bhraytracer_tpu_torch.ops.bvh import LEAF_FACES, MAX_INDEX, leaf_code
+from bhraytracer_tpu_torch.ops.linalg import BIG
 from bhraytracer_tpu_torch.ops.stream import stream_table
 
 
@@ -61,9 +63,10 @@ class ScenePack:
     resolve_rows: torch.Tensor  # (F,32)
     # Affine-barycentric stream rows (ops/stream.py), padded with zero rows.
     stream_rows: torch.Tensor  # (F_pad,16)
-    # BVH kernel rows (ops/bvh.py): [bmin bmax | left count | code | pad]
-    # and, in leaf order, [v0 v1 v2 | n | n.v0 | 1/|n| | pad].
-    bvh_nodes: torch.Tensor  # (B,16)
+    # BVH rows (ops/bvh.py): the kernels' sibling-pair table [bmin bmax |
+    # code mag] with one pad row first (pair_table), and, in leaf order,
+    # [v0 v1 v2 | n | n.v0 | 1/|n| | pad].
+    bvh_pairs: torch.Tensor  # (B+1,8)
     bvh_faces: torch.Tensor  # (F,16)
 
     # ---- materials ----
@@ -125,7 +128,7 @@ class ScenePack:
 
 _META = ("bvh_depth", "n_sph", "n_pln", "n_msh", "n_lights", "has_file_tex",
          "n_texmaps")
-_DERIVED = ("stream_rows", "bvh_nodes", "bvh_faces")
+_DERIVED = ("stream_rows", "bvh_pairs", "bvh_faces")
 _DATA = tuple(f.name for f in dataclasses.fields(ScenePack)
               if f.name not in _META + _DERIVED + ("cache",))
 
@@ -152,27 +155,12 @@ def face_planes(wtri_v0, wtri_v1, wtri_v2):
 
 
 def bvh_tables(bvh_bmin, bvh_bmax, bvh_left, bvh_count, v0, v1, v2):
-    """(nodes (B,16), faces (F,16)) float32 rows of the BVH kernels, computed
+    """(pairs (B+1,8), faces (F,16)) float32 rows of the BVH kernels, from
+    the tree (pair_table) and the world triangles in leaf order, the faces
     as bhraytracer_tpu/scene/compile.py:191-223 computes its single-shot
-    packet tables, from the tree and the world triangles in leaf order (so
-    a JAX pack with treelets gives the same tables as one without)."""
+    packet table (so a JAX pack with treelets gives the same tables as one
+    without)."""
     f32 = np.float32
-    nodes = np.zeros((bvh_bmin.shape[0], 16), f32)
-    nodes[:, 0:3] = bvh_bmin
-    nodes[:, 3:6] = bvh_bmax
-    nodes[:, 6] = bvh_left.astype(f32)
-    nodes[:, 7] = bvh_count.astype(f32)
-    # Ordered-descent code: the axis that best separates the two child
-    # boxes' centres, + 3 when the left child sits on the high side.
-    internal = bvh_count == 0
-    if internal.any():
-        li = bvh_left[internal]
-        c_l = 0.5 * (bvh_bmin[li] + bvh_bmax[li])
-        c_r = 0.5 * (bvh_bmin[li + 1] + bvh_bmax[li + 1])
-        diff = c_r - c_l
-        axis = np.argmax(np.abs(diff), axis=1)
-        flip = diff[np.arange(diff.shape[0]), axis] < 0.0
-        nodes[internal, 8] = (axis + 3 * flip).astype(f32)
     faces = np.zeros((v0.shape[0], 16), f32)
     faces[:, 0:3] = v0
     faces[:, 3:6] = v1
@@ -181,7 +169,49 @@ def bvh_tables(bvh_bmin, bvh_bmax, bvh_left, bvh_count, v0, v1, v2):
     faces[:, 9:12] = fn_
     faces[:, 12] = np.einsum("ij,ij->i", fn_, v0).astype(f32)
     faces[:, 13] = inv_nlen
-    return nodes, faces
+    return pair_table(bvh_bmin, bvh_bmax, bvh_left, bvh_count), faces
+
+
+def pair_table(bvh_bmin, bvh_bmax, bvh_left, bvh_count):
+    """(B+1, 8) float32 sibling-pair table of the BVH kernels: row r + 1
+    holds node r as [bmin (3), bmax (3), code, mag], the two float4 that
+    csrc/bvh.cu reads for a box, and row 0 an empty box (BIG, -BIG) that no
+    ray enters. `code` is int32 bits: an inner node's `left`, a leaf's
+    `leaf_code` (ops/bvh.py); `mag` is max |bmin|, |bmax|, the box's
+    widening scale (csrc/trace.cuh:box_mag). The builder puts the children
+    of every inner node at `left`, `left + 1` with `left` odd, so each pair
+    fills rows left + 1 (even) and left + 2: one aligned 64-byte line, which
+    the kernels fetch whole to test both children and learn where each
+    leads. Raises ValueError on a tree without that layout, or past the leaf
+    code: nodes and faces below MAX_INDEX, leaves of fewer than LEAF_FACES
+    faces."""
+    f32 = np.float32
+    left, count = bvh_left.astype(np.int64), bvh_count.astype(np.int64)
+    internal = count == 0
+    if (internal.any() and ((left[internal] % 2 != 1).any()
+                            or left[internal].max() + 1 >= left.shape[0])):
+        raise ValueError("BVH: siblings not at (left, left + 1), left odd")
+    leaf = ~internal
+    if (left.shape[0] >= MAX_INDEX
+            or leaf.any() and ((count[leaf] >= LEAF_FACES).any()
+                               or (left[leaf] + count[leaf]).max()
+                               > MAX_INDEX)):
+        raise ValueError(f"BVH: {MAX_INDEX} nodes or faces or more, or a "
+                         f"leaf of {LEAF_FACES} faces or more")
+    box = np.concatenate([bvh_bmin, bvh_bmax], 1).astype(f32)
+    a = np.abs(box)
+    mag = np.fmax(np.fmax(np.fmax(a[:, 0], a[:, 1]),
+                          np.fmax(a[:, 2], a[:, 3])),
+                  np.fmax(a[:, 4], a[:, 5]))
+    code = np.where(internal, left, leaf_code(left, count)).astype(np.int32)
+    pairs = np.zeros((box.shape[0] + 1, 8), f32)
+    pairs[0, 0:3] = BIG
+    pairs[0, 3:6] = -BIG
+    pairs[0, 7] = BIG
+    pairs[1:, 0:6] = box
+    pairs[1:, 6] = code.view(f32)
+    pairs[1:, 7] = mag
+    return pairs
 
 
 def pack_from_numpy(d: dict, device=None) -> ScenePack:
@@ -201,10 +231,11 @@ def pack_from_numpy(d: dict, device=None) -> ScenePack:
     fn_, inv_nlen = face_planes(v0, v1, v2)
     rows = stream_table(
         *(torch.from_numpy(x).to(device) for x in (v0, v1, v2, fn_, inv_nlen)))
-    nodes, faces = bvh_tables(*(np.asarray(d[k]) for k in (
-        "bvh_bmin", "bvh_bmax", "bvh_left", "bvh_count")), v0, v1, v2)
+    tree = [np.asarray(d[k]) for k in ("bvh_bmin", "bvh_bmax", "bvh_left",
+                                       "bvh_count")]
+    pairs, faces = bvh_tables(*tree, v0, v1, v2)
     meta = {k: (bool(d[k]) if k == "has_file_tex" else int(d[k]))
             for k in _META}
     return ScenePack(**t, stream_rows=rows,
-                     bvh_nodes=torch.from_numpy(nodes).to(device),
+                     bvh_pairs=torch.from_numpy(pairs).to(device),
                      bvh_faces=torch.from_numpy(faces).to(device), **meta)

@@ -14,9 +14,12 @@ makes (the chain trips and the levels) and on a synthetic 8192-face mesh,
 the culling flat any-hit kernel (2) bit for bit on the frame's shadow
 calls (levels >= 1), each with per-ray cull counts and timed beside the
 BVH kernel on the same rays, kernel 3 with its device time, registers,
-occupancy and the launches of one shade step, kernel 8 at the photon
-build's 32,768 lanes, and kernels 1, 2 and 4-9 on tables of 40 spheres
-and 40 planes; renders the scenes beyond the fused
+occupancy and the launches of one shade step, kernels 4 and 5 with
+their results and per-ray box and triangle test counts equal to
+`bvh_walk_ref`'s on 16,384-lane subsets and with their device times,
+registers and occupancy, kernel 8 at the photon build's 32,768 lanes,
+kernel 9 on a photon frame's shadow calls, and kernels 1, 2 and 4-9 on
+tables of 40 spheres and 40 planes; renders the scenes beyond the fused
 shade kernel's tables (scenes.LIMIT_SCENES, and one with a photon map) on
 the card against the CPU, and traces and renders a 204,800-face mesh
 through the BVH route; times both level-0 routes (BVH and stream) on the
@@ -52,16 +55,19 @@ placed in an older checkout times or profiles that checkout.
     python3 chip_smoke.py --save-inputs PATH
     python3 chip_smoke.py --timing PATH
 
-The first writes the inputs of kernels 1, 2, 3, 7 and 8 at the shapes
-their main paths give them (480K scattered bench rays, the closest and
-shadow calls of a bench frame, a synthetic 8192-face mesh; the bench
-scene's level-0 lanes and shadow rays; the big-mesh scene's sorted
-scattered rays; the tiny scene's rays at 480K and at the photon build's
-32,768 lanes) to PATH; the second times each kernel on them, through its
-wrapper and on the device, with the shade kernel's registers, stack,
-occupancy and the launches of one shade step. `--timing` reads only APIs
-that older checkouts have too, so a copy of this script placed in one
-times that checkout's kernels on the same inputs.
+The first writes the inputs of kernels 1-5 and 7-9 at the shapes their
+main paths give them (480K scattered bench rays, the closest and shadow
+calls of a bench frame, a synthetic 8192-face mesh; the bench scene's
+level-0 lanes and shadow rays; the big-mesh scene's level-0 camera and
+shadow rays and its scattered rays, sorted and not; the tiny scene's rays
+at 480K and at the photon build's 32,768 lanes, its level-0 shadow rays
+and a photon frame's shadow calls) to PATH; the second times each kernel
+on them, through its wrapper and on the device, with the registers,
+stack and occupancy of the shade and BVH kernels and the launches of one
+shade step. `--timing` reads only APIs that older checkouts have too (the
+BVH kernels on the node table the checkout's wrapper reads), so a copy of
+this script placed in one times that checkout's kernels on the same
+inputs.
 """
 
 from __future__ import annotations
@@ -393,7 +399,7 @@ def closest_ops(pack, o, d, t_init, side: str) -> dict:
 
     sph, pln = analytic_tables(pack)
     return _traversal_ops(pack, o, lambda counts: B.bvh_closest(
-        pack.bvh_nodes, pack.bvh_faces, pack.bvh_depth, sph, pln, o, d,
+        pack.bvh_pairs, pack.bvh_faces, pack.bvh_depth, sph, pln, o, d,
         t_init, side, counts))
 
 
@@ -405,7 +411,7 @@ def occlusion_ops(pack, o, d, t_max, t_min, ana_bias) -> dict:
 
     sph, pln = analytic_tables(pack)
     return _traversal_ops(pack, o, lambda counts: B.bvh_anyhit(
-        pack.bvh_nodes, pack.bvh_faces, pack.bvh_depth, sph, pln, o, d,
+        pack.bvh_pairs, pack.bvh_faces, pack.bvh_depth, sph, pln, o, d,
         t_max, t_min, ana_bias, counts=counts))
 
 
@@ -413,6 +419,24 @@ def op_bound(n_bytes: float, work: dict) -> dict:
     """bound() of closest_ops / occlusion_ops work, with its counts."""
     return dict(**bound(n_bytes, work["ops"]), box_tests=work["box_tests"],
                 tri_tests=work["tri_tests"])
+
+
+def bvh_bytes(pack, sph, pln) -> tuple:
+    """Bytes of the tables kernels 4 and 5 read (the sibling-pair table,
+    the face rows, the analytic tables), and the same with the JAX
+    package's 64-byte node rows in place of the pair table: the yardstick
+    of the kernels before the pair table, reported beside the bound as
+    `node_rows_bound_ms` so that old and new kernels can be compared."""
+    tab = nbytes(pack.bvh_pairs, pack.bvh_faces, sph, pln)
+    return tab, tab - nbytes(pack.bvh_pairs) + pack.bvh_left.shape[0] * 64
+
+
+def bvh_bound(tabs: tuple, ray_bytes: int, work: dict) -> dict:
+    """op_bound() of a BVH kernel's work over `tabs` (bvh_bytes) and rays
+    of `ray_bytes`, with the bound under the 64-byte node rows beside it."""
+    return dict(**op_bound(tabs[0] + ray_bytes, work),
+                node_rows_bound_ms=bound(tabs[1] + ray_bytes,
+                                         work["ops"])["bound_ms"])
 
 
 def compare_exact(what, t1, k1, t0, k0):
@@ -474,7 +498,7 @@ def compare_stream(pack, tiny, cam, dev):
         ms=cuda_ms(flat, 5),
         device_ms=device_ms(flat, 5, ("closest_kernel",)),
         bvh_same_rays_ms=cuda_ms(lambda: B.bvh_closest(
-            pack.bvh_nodes, pack.bvh_faces, pack.bvh_depth, sph, pln, o2, d2,
+            pack.bvh_pairs, pack.bvh_faces, pack.bvh_depth, sph, pln, o2, d2,
             t_init, "both"), 5),
         plain_ms=cuda_ms(lambda: K.stream_closest_ref(rows, sph, pln, o2, d2,
                                                       t_init, 2), 2),
@@ -510,10 +534,10 @@ def compare_stream(pack, tiny, cam, dev):
         ms=cuda_ms(shadow, 5),
         device_ms=device_ms(shadow, 5, ("cull_anyhit_kernel",)),
         bvh_same_rays_ms=cuda_ms(lambda: B.bvh_anyhit(
-            pack.bvh_nodes, pack.bvh_faces, pack.bvh_depth, sph, pln, so, sd,
+            pack.bvh_pairs, pack.bvh_faces, pack.bvh_depth, sph, pln, so, sd,
             tm, MESH_SHADOW_BIAS, cfg.shadow_bias), 5),
         bvh_same_rays_device_ms=device_ms(lambda: B.bvh_anyhit(
-            pack.bvh_nodes, pack.bvh_faces, pack.bvh_depth, sph, pln, so, sd,
+            pack.bvh_pairs, pack.bvh_faces, pack.bvh_depth, sph, pln, so, sd,
             tm, MESH_SHADOW_BIAS, cfg.shadow_bias), 5,
             ("bvh_anyhit_kernel",)),
         plain_ms=cuda_ms(lambda: K.stream_anyhit_ref(
@@ -590,10 +614,70 @@ def subset(dev):
             + torch.arange(run, device=dev)).reshape(-1)
 
 
+def bvh_tabs(pack):
+    """(node table, faces, depth) that the checkout's BVH kernels read: the
+    sibling-pair table, or the 16-float node rows in checkouts from before
+    it (so --timing runs in either)."""
+    nodes = pack.bvh_pairs if hasattr(pack, "bvh_pairs") else pack.bvh_nodes
+    return nodes, pack.bvh_faces, pack.bvh_depth
+
+
+def bvh_times(tabs, sph, pln, o, d, aux, side=None, shadow=None) -> dict:
+    """Kernel 4 (closest hits, `aux` the seeds, `side`) or kernel 5
+    (occlusion, `aux` the t_max, `shadow` (t_min, ana_bias,
+    plane_world_bug)) on rays o, d: through the wrapper (CUDA events) and
+    on the device (the profiler)."""
+    from bhraytracer_tpu_torch.ops import bvh as B
+
+    if shadow is None:
+        def run():
+            return B.bvh_closest(*tabs, sph, pln, o, d, aux, side)
+    else:
+        def run():
+            return B.bvh_anyhit(*tabs, sph, pln, o, d, aux, *shadow)
+    name = "bvh_closest_kernel" if shadow is None else "bvh_anyhit_kernel"
+    return dict(lanes=o.shape[0], ms=cuda_ms(run, 5),
+                device_ms=device_ms(run, 5, (name,)))
+
+
+def walk_counts(pack, sph, pln, o, d, aux, idx, side=2, shadow=None):
+    """Kernel 4 (or 5, with `shadow`) on every lane with its per-ray counts,
+    against bvh_walk_ref on the lanes `idx`: the result and the counts must
+    be equal. Returns the kernel's counts (all lanes) and the lanes
+    compared."""
+    import torch
+
+    from bhraytracer_tpu_torch.ops import bvh as B
+
+    tabs = bvh_tabs(pack)
+    counts = torch.empty((o.shape[0], 2), dtype=torch.int32, device=o.device)
+    if shadow is None:
+        out = B.bvh_closest(*tabs, sph, pln, o, d, aux,
+                            ("front", "back", "both")[side], counts)
+    else:
+        out = (B.bvh_anyhit(*tabs, sph, pln, o, d, aux, *shadow,
+                            counts=counts),)
+    ref = B.bvh_walk_ref(pack.bvh_pairs, pack.bvh_faces, sph, pln, o[idx],
+                         d[idx], aux[idx], side, shadow)
+    what = "bvh_closest" if shadow is None else "bvh_anyhit"
+    for x, r in zip(out, ref[:-1]):
+        check(bool(torch.equal(x[idx], r)),
+              f"{what}: the kernel and bvh_walk_ref differ on "
+              f"{int((x[idx] != r).sum())} lanes")
+    bad = int((counts[idx] != ref[-1]).any(1).sum())
+    check(bad == 0, f"{what}: per-ray counts differ from bvh_walk_ref's on "
+          f"{bad} of {idx.shape[0]} lanes")
+    return counts, idx.shape[0]
+
+
 def compare_bvh(bench, big, cam, dev):
     """Kernels 4 and 5 against their twins: the bench scene's 480K level-0
     camera rays and shadow rays, whole; the big-mesh scene's, on SUBSET
-    lanes. Both level-0 routes are timed on the same camera rays."""
+    lanes; each kernel's result and per-ray counts against bvh_walk_ref's on
+    SUBSET lanes of these and of 480K scattered rays from the level-0 hits
+    (bench seed 0, big mesh seed 1); each timed through the wrapper and on
+    the device, with its registers and occupancy. Both level-0 routes are
+    timed on the same camera rays."""
     import torch
 
     from bhraytracer_tpu_torch.ops import bvh as B
@@ -604,56 +688,79 @@ def compare_bvh(bench, big, cam, dev):
 
     t_init = torch.full((LANES,), BIG, device=dev)
     idx = subset(dev)
-    res, errs, occ_bad = {}, [], 0
-    for name, pack in (("bench", bench), ("bigmesh", big)):
-        cfg, o, d, hit, shade, u_tab = level0(pack, cam, dev)
+    res, errs, occ_bad, walked = {}, [], 0, 0
+    for name, pack, seed, cfg_kw in (("bench", bench, 0, HEADLINE),
+                                     ("bigmesh", big, 1, BIGMESH)):
+        cfg, o, d, hit, shade, u_tab = level0(pack, cam, dev, cfg_kw)
         sph, pln = analytic_tables(pack)
-        tabs = (pack.bvh_nodes, pack.bvh_faces, pack.bvh_depth)
+        tabs = bvh_tabs(pack)
         fo = S.shade_setup(pack, cfg, o, d, hit, shade, u_tab)
         so, sd = fo.shadow_o.contiguous(), fo.shadow_d.contiguous()
         tm = fo.shadow_tmax.contiguous()
+        shadow = (MESH_SHADOW_BIAS, cfg.shadow_bias, False)
+        o2, d2 = scattered(o, d, hit, seed)
         sel = slice(None) if name == "bench" else idx
         t1, k1 = B.bvh_closest(*tabs, sph, pln, o, d, t_init, "front")
         t0, k0 = B.bvh_closest_ref(pack.bvh_faces, sph, pln, o[sel], d[sel],
                                    t_init[sel], 0)
         errs.append(compare_exact(f"bvh_closest ({name})", t1[sel], k1[sel],
                                   t0, k0))
-        a1 = B.bvh_anyhit(*tabs, sph, pln, so, sd, tm, MESH_SHADOW_BIAS,
-                          cfg.shadow_bias)
+        a1 = B.bvh_anyhit(*tabs, sph, pln, so, sd, tm, *shadow[:2])
         a0 = B.bvh_anyhit_ref(pack.bvh_faces, sph, pln, so[sel], sd[sel],
-                              tm[sel], MESH_SHADOW_BIAS, cfg.shadow_bias,
-                              False)
+                              tm[sel], *shadow)
         check(bool(a0.any()), f"bvh_anyhit ({name}): no occluded lane")
         occ_bad += int((a1[sel] != a0).sum())
+        counts = {}
+        for key, oo, dd, side in (("camera", o, d, 0),
+                                  ("scattered", o2, d2, 2)):
+            c, n = walk_counts(pack, sph, pln, oo, dd, t_init, idx, side)
+            counts[key] = c
+            walked += n
+        c, n = walk_counts(pack, sph, pln, so, sd, tm, idx, shadow=shadow)
+        counts["shadow"] = c
+        walked += n
         lanes = LANES if name == "bench" else SUBSET
-        tab_bytes = nbytes(pack.bvh_nodes, pack.bvh_faces, sph, pln)
+        tab_bytes = bvh_bytes(pack, sph, pln)
+        work = {k: c.double().mean(0).tolist() for k, c in counts.items()}
         closest = dict(
             lanes_compared=lanes,
-            ms=cuda_ms(lambda: B.bvh_closest(*tabs, sph, pln, o, d, t_init,
-                                             "front"), 5),
+            **bvh_times(tabs, sph, pln, o, d, t_init, "front"),
+            scattered=dict(
+                **bvh_times(tabs, sph, pln, o2, d2, t_init, "both"),
+                **bvh_bound(tab_bytes, nbytes(o2, d2, t_init) + LANES * 8,
+                            closest_ops(pack, o2, d2, t_init, "both"))),
             plain_ms=cuda_ms(lambda: B.bvh_closest_ref(
                 pack.bvh_faces, sph, pln, o[sel], d[sel], t_init[sel], 0), 1),
-            plain_lanes=lanes,
-            **op_bound(tab_bytes + nbytes(o, d, t_init) + LANES * 8,
-                       closest_ops(pack, o, d, t_init, "front")))
+            plain_lanes=lanes, pair_table_bytes=nbytes(tabs[0]),
+            tests_per_ray=dict(camera=work["camera"],
+                               scattered=work["scattered"]),
+            **bvh_bound(tab_bytes, nbytes(o, d, t_init) + LANES * 8,
+                        closest_ops(pack, o, d, t_init, "front")))
         anyhit = dict(
             lanes_compared=lanes,
-            ms=cuda_ms(lambda: B.bvh_anyhit(*tabs, sph, pln, so, sd, tm,
-                                            MESH_SHADOW_BIAS,
-                                            cfg.shadow_bias), 5),
+            **bvh_times(tabs, sph, pln, so, sd, tm, shadow=shadow),
             plain_ms=cuda_ms(lambda: B.bvh_anyhit_ref(
                 pack.bvh_faces, sph, pln, so[sel], sd[sel], tm[sel],
-                MESH_SHADOW_BIAS, cfg.shadow_bias, False), 1),
-            plain_lanes=lanes,
-            **op_bound(tab_bytes + nbytes(so, sd, tm) + LANES,
-                       occlusion_ops(pack, so, sd, tm, MESH_SHADOW_BIAS,
-                                     cfg.shadow_bias)))
+                *shadow), 1),
+            plain_lanes=lanes, pair_table_bytes=nbytes(tabs[0]),
+            tests_per_ray=work["shadow"],
+            **bvh_bound(tab_bytes, nbytes(so, sd, tm) + LANES,
+                        occlusion_ops(pack, so, sd, tm, MESH_SHADOW_BIAS,
+                                      cfg.shadow_bias)))
+        if name == "bench":
+            for k, v in (("closest", closest), ("anyhit", anyhit)):
+                kern = f"bvh_{k}_kernel"
+                run = ((lambda: B.bvh_closest(*tabs, sph, pln, o, d, t_init,
+                                              "front")) if k == "closest"
+                       else (lambda: B.bvh_anyhit(*tabs, sph, pln, so, sd, tm,
+                                                  *shadow)))
+                v.update(ptxas=ptxas_report(kern),
+                         occupancy=trace_args(run, kern))
         res[name] = (closest, anyhit)
         if name == "bench":
             # The other level-0 route on the same camera rays (the flat
             # stream kernel), and both routes on the scattered rays
             # compare_stream times (the levels >= 1 kind).
-            o2, d2 = scattered(o, d, hit, 0)
             res["route_bench"] = dict(
                 bvh_closest_ms=closest["ms"],
                 stream_closest_ms=cuda_ms(lambda: K.stream_closest(
@@ -663,8 +770,7 @@ def compare_bvh(bench, big, cam, dev):
                 stream_anyhit_ms=cuda_ms(lambda: K.stream_anyhit(
                     pack.stream_rows, sph, pln, so, sd, tm, MESH_SHADOW_BIAS,
                     cfg.shadow_bias, boxes=flat_boxes(pack)), 5),
-                scattered_bvh_closest_ms=cuda_ms(lambda: B.bvh_closest(
-                    *tabs, sph, pln, o2, d2, t_init, "both"), 5),
+                scattered_bvh_closest_ms=closest["scattered"]["ms"],
                 scattered_stream_closest_ms=cuda_ms(lambda: K.stream_closest(
                     pack.stream_rows, sph, pln, o2, d2, t_init, "both",
                     boxes=flat_boxes(pack)), 5))
@@ -673,10 +779,10 @@ def compare_bvh(bench, big, cam, dev):
     out = {
         "bhrt_bvh_closest": dict(
             max_abs_err=max(errs), **bc, shape="480K level-0 camera rays, "
-            "bench scene (1408 faces)", bigmesh=gc),
+            "bench scene (1408 faces)", bigmesh=gc, walk_lanes=walked),
         "bhrt_bvh_anyhit": dict(
             max_abs_err=float(occ_bad), **ba, shape="480K level-0 shadow "
-            "rays, bench scene (1408 faces)", bigmesh=ga),
+            "rays, bench scene (1408 faces)", bigmesh=ga, walk_lanes=walked),
     }
     return out, res["route_bench"]
 
@@ -811,7 +917,7 @@ def compare_hbm(big, cam, dev):
         inv = inverse_permutation(order)
         return t[inv], k[inv]
 
-    bvh_tabs = (big.bvh_nodes, big.bvh_faces, big.bvh_depth)
+    bvh_tabs = (big.bvh_pairs, big.bvh_faces, big.bvh_depth)
     route = dict(
         hbm_closest_ms=out["bhrt_stream_closest_hbm"]["ms"],
         hbm_closest_with_sort_ms=cuda_ms(routed, 5),
@@ -824,11 +930,13 @@ def compare_hbm(big, cam, dev):
     return out, route
 
 
-def compare_analytic(tiny, cam, dev):
+def compare_analytic(tiny, cam, dev, pmap):
     """Kernels 8 and 9 against their twins on the mesh-free tiny scene: its
     480K level-0 camera rays and 480K scattered rays from their hits, for
     every side; the level-0 shadow rays and the scattered rays (t_max 1 or
-    BIG), in both plane forms."""
+    BIG), in both plane forms, and the shadow calls of a photon frame
+    gathering from `pmap`; kernel 9 timed on the level-0 shadow rays and
+    over the frame's calls, through the wrapper and on the device."""
     import torch
 
     from bhraytracer_tpu_torch.ops import analytic as A
@@ -860,6 +968,12 @@ def compare_analytic(tiny, cam, dev):
                                        bug)
             check(bool(a0.any()), "analytic_anyhit: no occluded lane")
             n_bad += int((a1 != a0).sum())
+    calls = record_analytic_shadows(tiny, cam, pmap)
+    check(len(calls) > 0, "analytic_anyhit: no shadow call in a photon frame")
+    for oo, dd, tt, bias, bug in calls:
+        n_bad += int((A.analytic_anyhit(sph, pln, oo, dd, tt, bias, bug)
+                      != A.analytic_anyhit_ref(sph, pln, oo, dd, tt, bias,
+                                               bug)).sum())
     check(n_bad == 0, f"analytic_anyhit: {n_bad} lanes differ")
     return {
         "bhrt_analytic_closest": dict(
@@ -873,9 +987,12 @@ def compare_analytic(tiny, cam, dev):
             **bound(nbytes(sph, pln, o2, d2) + LANES * 8,
                     analytic_ops(tiny, LANES))),
         "bhrt_analytic_anyhit": dict(
-            max_abs_err=float(n_bad), lanes_compared=4 * LANES,
+            max_abs_err=float(n_bad),
+            lanes_compared=4 * LANES + sum(c[0].shape[0] for c in calls),
             ms=cuda_ms(lambda: A.analytic_anyhit(sph, pln, so, sd, tm,
                                                  cfg.shadow_bias), 5),
+            times=analytic_shadow_times(sph, pln, (so, sd, tm),
+                                        cfg.shadow_bias, calls),
             plain_ms=cuda_ms(lambda: A.analytic_anyhit_ref(
                 sph, pln, so, sd, tm, cfg.shadow_bias, False), 2),
             shape="480K level-0 shadow rays x 2 spheres + 1 plane",
@@ -938,7 +1055,17 @@ def compare_flat(pack, cam, dev, calls, shadows, grid, grid_cam):
 
     sph, pln = analytic_tables(pack)
     rows, boxes = pack.stream_rows, flat_boxes(pack)
-    bvh = (pack.bvh_nodes, pack.bvh_faces, pack.bvh_depth)
+    bvh = (pack.bvh_pairs, pack.bvh_faces, pack.bvh_depth)
+    bvh_tab = bvh_bytes(pack, sph, pln)
+
+    def bvh_bounds(ray_bytes, n_calls, ops):
+        # Kernel 4's or 5's bound on the same calls: each call reads the
+        # tables once.
+        return dict(bvh_bound_ms=bound(bvh_tab[0] * n_calls + ray_bytes,
+                                       ops)["bound_ms"],
+                    bvh_node_rows_bound_ms=bound(
+                        bvh_tab[1] * n_calls + ray_bytes, ops)["bound_ms"])
+
     res, bad, lanes = {}, 0, 0
     for kind, sel in (("chain", lambda c: c[3] == "both"),
                       ("levels", lambda c: c[3] != "both")):
@@ -968,6 +1095,9 @@ def compare_flat(pack, cam, dev, calls, shadows, grid, grid_cam):
             wrapper_ms=cuda_ms(run_flat, 3),
             device_ms=device_ms(run_flat, 3, ("closest_kernel",)),
             bvh_device_ms=device_ms(run_bvh, 3, ("bvh_closest_kernel",)),
+            **bvh_bounds(sum(nbytes(o, d, ti) + o.shape[0] * 8
+                             for o, d, ti, _ in part), len(part),
+                         sum(w["ops"] for w in work)),
             cull=cull_stats(torch.cat(counts), pack.wtri_v0.shape[0]),
             **bound(sum(nbytes(rows, *boxes, sph, pln, o, d, ti) + o.shape[0]
                         * 8 for o, d, ti, _ in part),
@@ -1007,6 +1137,10 @@ def compare_flat(pack, cam, dev, calls, shadows, grid, grid_cam):
         wrapper_ms=cuda_ms(run_shadow, 3),
         device_ms=device_ms(run_shadow, 3, ("cull_anyhit_kernel",)),
         bvh_device_ms=device_ms(run_bvh_shadow, 3, ("bvh_anyhit_kernel",)),
+        **bvh_bounds(sum(nbytes(o, d, tm) + o.shape[0]
+                         for o, d, tm, *_ in shadows), len(shadows),
+                     sum(occlusion_ops(pack, o, d, tm, t_min, bias)["ops"]
+                         for o, d, tm, t_min, bias, _ in shadows)),
         cull=cull_stats(torch.cat(counts), pack.wtri_v0.shape[0]),
         **bound(sum(nbytes(rows, *boxes, sph, pln, o, d, tm) + o.shape[0]
                     for o, d, tm, *_ in shadows),
@@ -1037,7 +1171,7 @@ def compare_flat(pack, cam, dev, calls, shadows, grid, grid_cam):
     res["grid8192"] = dict(
         lanes=LANES, ms=cuda_ms(gflat, 5),
         bvh_ms=cuda_ms(lambda: B.bvh_closest(
-            grid.bvh_nodes, grid.bvh_faces, grid.bvh_depth, gs, gp, o2, d2,
+            grid.bvh_pairs, grid.bvh_faces, grid.bvh_depth, gs, gp, o2, d2,
             t_init, "both"), 5),
         plain_ms=cuda_ms(lambda: K.stream_closest_ref(
             grows, gs, gp, o2, d2, t_init, 2), 1),
@@ -1096,7 +1230,7 @@ def compare_limits(dev):
                             *C.cluster_tables(p), sph, pln, oo, dd, t_init,
                             side), (t0, k0)),
                         "bhrt_bvh_closest": (B.bvh_closest(
-                            p.bvh_nodes, p.bvh_faces, p.bvh_depth, sph, pln,
+                            p.bvh_pairs, p.bvh_faces, p.bvh_depth, sph, pln,
                             oo, dd, t_init, side), (tb, kb))}
                 else:
                     t0, k0 = A.analytic_closest_ref(sph, pln, oo, dd, s)
@@ -1124,7 +1258,7 @@ def compare_limits(dev):
                             *C.cluster_tables(p), sph, pln, oo, dd, tm,
                             MESH_SHADOW_BIAS, 1e-5, bug), a0),
                         "bhrt_bvh_anyhit": (B.bvh_anyhit(
-                            p.bvh_nodes, p.bvh_faces, p.bvh_depth, sph, pln,
+                            p.bvh_pairs, p.bvh_faces, p.bvh_depth, sph, pln,
                             oo, dd, tm, MESH_SHADOW_BIAS, 1e-5, bug), ab)}
                 else:
                     a0 = A.analytic_anyhit_ref(sph, pln, oo, dd, tm, 1e-5, bug)
@@ -1244,34 +1378,100 @@ def analytic_times(sph, pln, o, d) -> dict:
                     sph.shape[0] * SPHERE_OPS + pln.shape[0] * PLANE_OPS)))
 
 
+def record_analytic_shadows(pack, cam, pmap):
+    """The shadow calls (kernel 9) of one photon frame at 800x600 with the
+    `_photon_leg` config, gathering from `pmap` as render_image does: (o,
+    d, t_max, ana_bias, plane_world_bug) of each, cloned."""
+    import bhraytracer_tpu_torch as B
+    from bhraytracer_tpu_torch.ops import trace as T
+
+    calls = []
+    anyhit = T.analytic_anyhit
+
+    def record(sph, pln, o, d, t_max, ana_bias=0.0, plane_world_bug=False):
+        calls.append((o.clone(), d.clone(), t_max.clone(), ana_bias,
+                      plane_world_bug))
+        return anyhit(sph, pln, o, d, t_max, ana_bias, plane_world_bug)
+
+    T.analytic_anyhit = record
+    try:
+        cam.width, cam.height = 800, 600
+        B.render_image(pack, cam, B.RenderConfig(**PHOTON), seed=1,
+                       photon_map=pmap)
+    finally:
+        T.analytic_anyhit = anyhit
+    return calls
+
+
+def analytic_shadow_times(sph, pln, shadow, bias, calls) -> dict:
+    """Kernel 9 on the 480K level-0 shadow rays `shadow` (o, d, t_max) and
+    over a photon frame's shadow calls (record_analytic_shadows): through
+    its wrapper and on the device."""
+    from bhraytracer_tpu_torch.ops import analytic as A
+
+    def run():
+        return A.analytic_anyhit(sph, pln, *shadow, bias)
+
+    def run_calls():
+        for o, d, tm, b, bug in calls:
+            A.analytic_anyhit(sph, pln, o, d, tm, b, bug)
+
+    def ops(n):
+        return n * (sph.shape[0] * SPHERE_OPS + pln.shape[0] * PLANE_OPS)
+
+    name = ("analytic_anyhit_kernel",)
+    n = shadow[0].shape[0]
+    return dict(level0=dict(lanes=n, ms=cuda_ms(run, 20),
+                            device_ms=device_ms(run, 20, name),
+                            **bound(nbytes(sph, pln, *shadow) + n, ops(n))),
+                frame_calls=dict(calls=len(calls),
+                                 lanes=sum(c[0].shape[0] for c in calls),
+                                 wrapper_ms=cuda_ms(run_calls, 5),
+                                 device_ms=device_ms(run_calls, 5, name),
+                                 **bound(sum(nbytes(sph, pln, *c[:3])
+                                             + c[0].shape[0] for c in calls),
+                                         sum(ops(c[0].shape[0])
+                                             for c in calls))))
+
+
 def save_inputs(dev, path):
-    """Write the inputs of kernels 1, 2, 3, 7 and 8 at their main paths'
-    shapes (see the module doc) to `path`."""
+    """Write the inputs of kernels 1-5 and 7-9 at their main paths' shapes
+    (see the module doc) to `path`."""
     import torch
 
+    import bhraytracer_tpu_torch as B
     from bhraytracer_tpu_torch import scenes
+    from bhraytracer_tpu_torch.models.photonmap import build_photon_map
     from bhraytracer_tpu_torch.ops import shade as S
     from bhraytracer_tpu_torch.ops.linalg import BIG
     from bhraytracer_tpu_torch.ops.trace import analytic_tables, coherence_order
 
+    def shadow_rays(p, cfg, o, d, hit, shade, u_tab):
+        fo = S.shade_setup(p, cfg, o, d, hit, shade, u_tab)
+        return tuple(x.contiguous() for x in (fo.shadow_o, fo.shadow_d,
+                                              fo.shadow_tmax))
+
     pack, cam = scenes.bench_scene(dev)
     cfg, o, d, hit, shade, u_tab = level0(pack, cam, dev)
     bench = dict(zip(("o", "d"), scattered(o, d, hit, 0)))
-    fo = S.shade_setup(pack, cfg, o, d, hit, shade, u_tab)
     level = dict(o=o, d=d, hit=tuple(hit), shade=shade, u_tab=u_tab,
-                 shadow=(fo.shadow_o.contiguous(), fo.shadow_d.contiguous(),
-                         fo.shadow_tmax.contiguous()))
+                 shadow=shadow_rays(pack, cfg, o, d, hit, shade, u_tab))
     big, big_cam = scenes.bigmesh_scene(dev)
-    _, o, d, hit, _, _ = level0(big, big_cam, dev, BIGMESH)
+    cfg_g, o, d, hit, shade, u_tab = level0(big, big_cam, dev, BIGMESH)
     o2, d2 = scattered(o, d, hit, 1)
+    big_bvh = dict(o=o, d=d, o2=o2, d2=d2, shadow_bias=cfg_g.shadow_bias,
+                   shadow=shadow_rays(big, cfg_g, o, d, hit, shade, u_tab))
     tm = torch.where(torch.arange(LANES, device=dev) % 3 == 0, BIG, 1.0)
     order = coherence_order(big, o2, d2, tm)
     grid, gcam = scenes.grid_scene(64, dev)
     _, o, d, hit, _, _ = level0(grid, gcam, dev)
     grid_in = dict(zip(("o", "d"), aimed(grid, o, d, hit, 4)))
     tiny, tcam = scenes.tiny_scene(dev)
-    _, o, d, hit, _, _ = level0(tiny, tcam, dev)
+    cfg_t, o, d, hit, shade, u_tab = level0(tiny, tcam, dev)
     o2t, d2t = scattered(o, d, hit, 2)
+    tiny_shadow = shadow_rays(tiny, cfg_t, o, d, hit, shade, u_tab)
+    pmap = build_photon_map(tiny, B.RenderConfig(**PHOTON), seed=1)
+    photon_shadows = record_analytic_shadows(tiny, tcam, pmap)
     calls, shadows = record_flat_calls(pack, cam)
     data = dict(
         t_init=torch.full((LANES,), BIG, device=dev),
@@ -1279,12 +1479,16 @@ def save_inputs(dev, path):
                    tables=analytic_tables(pack), **bench),
         level0=level, calls=calls, shadow_calls=shadows,
         bigmesh_shadow=tuple(x[order].contiguous() for x in (o2, d2, tm)),
+        bigmesh_bvh=big_bvh,
         grid=dict(rows=grid.stream_rows, boxes=flat_boxes(grid),
                   tables=analytic_tables(grid), **grid_in),
-        tiny=dict(tables=analytic_tables(tiny), o=o2t, d=d2t))
+        tiny=dict(tables=analytic_tables(tiny), o=o2t, d=d2t,
+                  shadow=tiny_shadow, shadow_bias=cfg_t.shadow_bias,
+                  photon_shadow_calls=photon_shadows))
     torch.save(data, path)
     print(json.dumps({"saved": path, "calls": len(calls),
-                      "shadow_calls": len(shadows)}))
+                      "shadow_calls": len(shadows),
+                      "photon_shadow_calls": len(photon_shadows)}))
 
 
 def time_inputs(dev, card, path):
@@ -1297,7 +1501,13 @@ def time_inputs(dev, card, path):
     with its registers, stack and occupancy and the launches of one shade
     setup and one fused shade step; kernel 7 on the big-mesh scene's 480K
     sorted scattered rays, with its cull counts; kernel 8 at 480K and at
-    32,768 lanes."""
+    32,768 lanes; kernel 9 on the tiny scene's 480K level-0 shadow rays and
+    a photon frame's shadow calls; kernels 4 and 5 on the node table the
+    checkout's wrapper reads (bvh_tabs), with their registers and
+    occupancy: kernel 4 on the 480K level-0 and scattered bench rays and
+    big-mesh rays and on the bench frame's chain trips and levels, kernel
+    5 on the level-0 shadow rays of both scenes and the bench frame's
+    shadow calls."""
     import inspect
 
     import torch
@@ -1305,6 +1515,7 @@ def time_inputs(dev, card, path):
     import bhraytracer_tpu_torch as B
     from bhraytracer_tpu_torch import scenes
     from bhraytracer_tpu_torch.models import pathtracer as PT
+    from bhraytracer_tpu_torch.ops import bvh as BV
     from bhraytracer_tpu_torch.ops import cull as C
     from bhraytracer_tpu_torch.ops import shade as S
     from bhraytracer_tpu_torch.ops import stream as K
@@ -1408,6 +1619,57 @@ def time_inputs(dev, card, path):
     n = PHOTON_BATCH_LANES
     out["analytic_32768"] = analytic_times(
         *tiny["tables"], tiny["o"][:n].contiguous(), tiny["d"][:n].contiguous())
+    out["analytic_anyhit"] = analytic_shadow_times(
+        *tiny["tables"], tiny["shadow"], tiny["shadow_bias"],
+        tiny["photon_shadow_calls"])
+
+    # Kernels 4 and 5 on the node table this checkout's wrapper reads.
+    sph, pln = analytic_tables(pack)
+    tabs = bvh_tabs(pack)
+    gb = data["bigmesh_bvh"]
+    gtabs, (gs, gp) = bvh_tabs(big), analytic_tables(big)
+    out["bvh_table"] = dict(rows=list(tabs[0].shape),
+                            bytes=tabs[0].numel() * 4)
+    out["bvh_closest"] = dict(
+        camera=bvh_times(tabs, sph, pln, lv["o"], lv["d"], t_init, "front"),
+        scattered=bvh_times(tabs, sph, pln, part["o"], part["d"], t_init,
+                            "both"),
+        bigmesh_camera=bvh_times(gtabs, gs, gp, gb["o"], gb["d"], t_init,
+                                 "front"),
+        bigmesh_scattered=bvh_times(gtabs, gs, gp, gb["o2"], gb["d2"],
+                                    t_init, "both"))
+    for kind in ("chain", "levels"):
+        calls = [c for c in data["calls"]
+                 if (c[3] == "both") == (kind == "chain")]
+
+        def run_bvh(calls=calls):
+            for o, d, ti, side in calls:
+                BV.bvh_closest(*tabs, sph, pln, o, d, ti, side)
+
+        out["bvh_closest"][f"frame_{kind}"] = dict(
+            calls=len(calls), wrapper_ms=cuda_ms(run_bvh, 3),
+            device_ms=device_ms(run_bvh, 3, ("bvh_closest_kernel",)))
+    shadow = (MESH_SHADOW_BIAS, cfg.shadow_bias, False)
+
+    def run_bvh_shadows():
+        for o, d, tm, t_min, bias, bug in data["shadow_calls"]:
+            BV.bvh_anyhit(*tabs, sph, pln, o, d, tm, t_min, bias, bug)
+
+    out["bvh_anyhit"] = dict(
+        level0=bvh_times(tabs, sph, pln, so, sd, stm, shadow=shadow),
+        bigmesh_level0=bvh_times(gtabs, gs, gp, *gb["shadow"], shadow=(
+            MESH_SHADOW_BIAS, gb["shadow_bias"], False)),
+        frame_calls=dict(
+            calls=len(data["shadow_calls"]),
+            wrapper_ms=cuda_ms(run_bvh_shadows, 3),
+            device_ms=device_ms(run_bvh_shadows, 3, ("bvh_anyhit_kernel",))))
+    for kern, run in (
+            ("bvh_closest_kernel", lambda: BV.bvh_closest(
+                *tabs, sph, pln, lv["o"], lv["d"], t_init, "front")),
+            ("bvh_anyhit_kernel", lambda: BV.bvh_anyhit(
+                *tabs, sph, pln, so, sd, stm, *shadow))):
+        out[kern] = dict(ptxas=ptxas_report(kern),
+                         occupancy=trace_args(run, kern))
     print(json.dumps({"timing": out}))
 
 
@@ -2074,8 +2336,8 @@ def main() -> int:
     per_kernel.update(bvh)
     hbm, route_big = compare_hbm(big, big_cam, dev)
     per_kernel.update(hbm)
-    per_kernel.update(compare_analytic(tiny, cam, dev))
     pmap = build_photon_map(tiny, B.RenderConfig(**PHOTON), seed=1)
+    per_kernel.update(compare_analytic(tiny, cam, dev, pmap))
     per_kernel.update(compare_photon(tiny, cam, dev, pmap))
     grid, grid_cam = grid_scene(64, dev)
     flat, n_flat, n_shadow = compare_flat(pack, cam, dev,
@@ -2122,6 +2384,16 @@ def main() -> int:
     ka = per_kernel["bhrt_analytic_closest"]
     print("analytic closest kernel (wrapper and device):", json.dumps(
         {k: ka[k] for k in ("times_480k", "times_32768")}))
+    print("analytic any-hit kernel (wrapper and device):",
+          json.dumps(per_kernel["bhrt_analytic_anyhit"]["times"]))
+    for k in BVH:
+        v = per_kernel[k]
+        print(f"{KERNELS[k]['name']} (wrapper and device; tests a ray; "
+              f"results and counts equal bvh_walk_ref's on {v['walk_lanes']} "
+              "lanes):", json.dumps({x: v[x] for x in (
+                  "ms", "device_ms", "scattered", "bigmesh", "tests_per_ray",
+                  "bound_ms", "node_rows_bound_ms", "pair_table_bytes",
+                  "ptxas", "occupancy") if x in v}))
     print("kernels on 40 spheres and 40 planes:", json.dumps(limits))
 
     small = small_render_vs_cpu(dev)

@@ -94,7 +94,7 @@ def test_bvh_closest_twin_matches_jax(impl, side, tinit, seed, divergent_on):
     jkey = jface * 2 + jfront
 
     pack, sph, pln = _port_tables(impl)
-    t, key = B.bvh_closest(pack.bvh_nodes, pack.bvh_faces, pack.bvh_depth,
+    t, key = B.bvh_closest(pack.bvh_pairs, pack.bvh_faces, pack.bvh_depth,
                            sph, pln, torch.from_numpy(o), torch.from_numpy(d),
                            torch.from_numpy(t_init), side)
     t, key = t.numpy(), key.numpy()
@@ -134,7 +134,7 @@ def test_bvh_anyhit_twin_matches_jax(impl, plane_bug, seed, divergent_on):
     jocc = np.asarray(jocc)
 
     pack, sph, pln = _port_tables(impl)
-    occ = B.bvh_anyhit(pack.bvh_nodes, pack.bvh_faces, pack.bvh_depth, sph,
+    occ = B.bvh_anyhit(pack.bvh_pairs, pack.bvh_faces, pack.bvh_depth, sph,
                        pln, torch.from_numpy(o), torch.from_numpy(d),
                        torch.from_numpy(t_max), MESH_SHADOW_BIAS,
                        ana_bias=1e-5, plane_world_bug=plane_bug).numpy()
@@ -146,13 +146,21 @@ def test_bvh_wrapper_refuses_bad_inputs():
     pack = port_pack("bench")
     sph, pln = analytic_tables(pack)
     o = torch.zeros((4, 3))
-    tabs = (pack.bvh_nodes, pack.bvh_faces)
+    tabs = (pack.bvh_pairs, pack.bvh_faces)
     with pytest.raises(ValueError):  # deeper than the kernels' stack
         B.bvh_closest(*tabs, B.STACK_DEPTH - 1, sph, pln, o, o,
                       torch.zeros(4), "front")
-    with pytest.raises(ValueError):
-        B.bvh_closest(pack.bvh_nodes[:, :8].contiguous(), pack.bvh_faces,
-                      pack.bvh_depth, sph, pln, o, o, torch.zeros(4), "front")
+    # Not the sibling-pair table: 16-float node rows (the JAX package's
+    # layout), rows cut short, the pad row dropped (an odd row count).
+    n_nodes = pack.bvh_left.shape[0]
+    for nodes in (torch.zeros((n_nodes, 16)),
+                  pack.bvh_pairs[:, :4].contiguous(), pack.bvh_pairs[1:]):
+        with pytest.raises(ValueError):
+            B.bvh_closest(nodes, pack.bvh_faces, pack.bvh_depth, sph, pln, o,
+                          o, torch.zeros(4), "front")
+        with pytest.raises(ValueError):
+            B.bvh_anyhit(nodes, pack.bvh_faces, pack.bvh_depth, sph, pln, o,
+                         o, torch.zeros(4), MESH_SHADOW_BIAS)
     with pytest.raises(ValueError):
         B.bvh_anyhit(*tabs, pack.bvh_depth, sph, pln, o, o.double(),
                      torch.zeros(4), MESH_SHADOW_BIAS)

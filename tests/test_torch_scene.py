@@ -36,7 +36,7 @@ def test_compile_scene_matches_jax(name):
 def test_pack_from_numpy_round_trip(name):
     pack, _ = PORT_SCENES[name](device="cpu")
     carried = port_pack(name)
-    for k in _DATA + ("stream_rows", "bvh_nodes", "bvh_faces"):
+    for k in _DATA + ("stream_rows", "bvh_pairs", "bvh_faces"):
         np.testing.assert_array_equal(getattr(carried, k).numpy(),
                                       getattr(pack, k).numpy(), err_msg=k)
     for k in _META:
@@ -59,19 +59,30 @@ def test_stream_rows_match_jax_table(name):
 
 
 def test_bvh_tables_match_jax_pallas_tables():
-    """bvh_nodes[:, :9] (bounds, left, count, descent code) and
-    bvh_faces[:, :14] (vertices, normal, n.v0, 1/|n|) against the JAX
-    packet kernel's pallas_nodes / pallas_faces on the bench pack (no
-    treelets): both are computed in numpy with the same formulas."""
+    """The BVH kernels' tables against the JAX packet kernel's
+    pallas_nodes / pallas_faces on the bench pack (no treelets): bvh_pairs
+    (after its pad row) holds each node's bounds and, as its entry code,
+    the node's left (inner) or leaf_code(left, count) (leaf), taken from
+    pallas_nodes[:, :8]; bvh_faces[:, :14] (vertices, normal, n.v0, 1/|n|)
+    equals pallas_faces[:, :14]. Both sides are computed in numpy with the
+    same formulas."""
+    from bhraytracer_tpu_torch.ops.bvh import leaf_code
+
     jpack, _ = jax_scene("bench")
     assert not jpack.treelets
     pack = port_pack("bench")
-    np.testing.assert_array_equal(pack.bvh_nodes[:, :9].numpy(),
-                                  np.asarray(jpack.pallas_nodes)[:, :9])
+    jnodes = np.asarray(jpack.pallas_nodes)
+    pairs = pack.bvh_pairs.numpy()
+    assert pairs.shape == (jnodes.shape[0] + 1, 8)
+    np.testing.assert_array_equal(pairs[1:, :6], jnodes[:, :6])
+    left = jnodes[:, 6].astype(np.int64)
+    count = jnodes[:, 7].astype(np.int64)
+    inner = count == 0
+    assert inner.any() and (~inner).any()
+    code = np.where(inner, left, leaf_code(left, count)).astype(np.int32)
+    np.testing.assert_array_equal(pairs[1:, 6].view(np.int32), code)
     np.testing.assert_array_equal(pack.bvh_faces[:, :14].numpy(),
                                   np.asarray(jpack.pallas_faces)[:, :14])
-    internal = pack.bvh_nodes[:, 7] == 0
-    assert internal.any() and (pack.bvh_nodes[internal, 8] > 0).any()
 
 
 def test_bvh_tables_ignore_treelets():
@@ -85,7 +96,7 @@ def test_bvh_tables_ignore_treelets():
     assert len(jpack.treelets) > 1
     ours = pack_from_numpy(pack_dict(jpack), device="cpu")
     ref = port_pack("bench")
-    for k in ("bvh_nodes", "bvh_faces", "stream_rows"):
+    for k in ("bvh_pairs", "bvh_faces", "stream_rows"):
         np.testing.assert_array_equal(getattr(ours, k).numpy(),
                                       getattr(ref, k).numpy(), err_msg=k)
 
