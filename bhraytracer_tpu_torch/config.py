@@ -32,6 +32,9 @@ class RenderConfig:
     shadow_bias: float = 1e-5
     # Glossy-refraction rejection-sampling tries.
     refr_gloss_tries: int = 4
+    # Texture filtering taps (TEXTURE_SAMPLE_COUNT 32, scene.h:18; 1 = the
+    # centre tap alone).
+    texture_sample_count: int = 32
     # Replicate the reference's plane-shadow frame bug (opt-in).
     parity_plane_shadow_bug: bool = False
     # Camera lanes per chunk.

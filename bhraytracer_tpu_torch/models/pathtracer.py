@@ -4,12 +4,13 @@ bhraytracer_tpu/models/pathtracer.py).
 A bounded-depth tree wavefront: level l is a flat batch of shade tasks;
 `_shade_level` traces them, runs the fused shade setup (kernel 3), the
 shadow trace, the compacted refraction/TIR chain (one closest trace per
-trip) and the GI sample, and emits the next level's tasks. With a caustic
-photon map attached, or tables beyond the fused kernel's (more than 32
-instances or materials, no lights or more than 8), the shade step is the
-unfused composition, whose direct term adds the photon gather
-(models/photonmap.py, kernel 10), as the reference's fused kernel gates
-itself off there (pallas_shade.py:501-511).
+trip) and the GI sample, and emits the next level's tasks. With texture
+maps, a caustic photon map attached, or tables beyond the fused kernel's
+(more than 32 instances or materials, no lights or more than 8), the shade
+step is the unfused composition, with textured colours (ops/texturing.py)
+and, with a map, the photon gather in its direct term (models/photonmap.py,
+kernel 10), as the reference's fused kernel gates itself off there
+(pallas_shade.py:501-511).
 Level 0's closest and shadow traces take reorder=False, so they go through
 the BVH kernels (4-5) on mesh scenes; every other trace takes reorder=True:
 the flat stream kernels (1-2), the grouped ones (6-7) above 8192 faces, or
@@ -42,7 +43,11 @@ from bhraytracer_tpu_torch.models.photonmap import (
     gather_irradiance,
 )
 from bhraytracer_tpu_torch.ops import rng
-from bhraytracer_tpu_torch.ops.camera import from_scene_camera, gen_rays
+from bhraytracer_tpu_torch.ops.camera import (
+    camera_basis,
+    from_scene_camera,
+    gen_rays,
+)
 from bhraytracer_tpu_torch.ops.compact import partition_indices
 from bhraytracer_tpu_torch.ops.linalg import (
     BIG,
@@ -60,7 +65,11 @@ from bhraytracer_tpu_torch.ops.sampling import (
     sample_in_semisphere,
 )
 from bhraytracer_tpu_torch.ops.shade import shade_setup, shade_setup_supported
-from bhraytracer_tpu_torch.ops.texturing import sample_background, sample_environment
+from bhraytracer_tpu_torch.ops.texturing import (
+    sample_background,
+    sample_environment,
+    textured_color,
+)
 from bhraytracer_tpu_torch.ops.trace import (
     Surface,
     check_traceable,
@@ -241,27 +250,42 @@ def _illuminate(pack, cfg: RenderConfig, lidx, p, u, mask,
     return irr, cand.sum()
 
 
+def _surface_colors(pack, cfg: RenderConfig, surf: Surface, mtl: Mtl,
+                    new_spec_color):
+    """The textured diffuse and specular colours of the hit (TexturedColor,
+    scene.h:410-411), computed once for the direct and the GI terms (the
+    JAX package computes the same values in each, pathtracer.py:314-319,
+    365-370); the untextured colours where the scene has no texture maps."""
+    taps = cfg.texture_sample_count
+    return (textured_color(pack, mtl.diffuse, mtl.diffuse_tm, surf.uvw,
+                           surf.duvw, taps=taps),
+            textured_color(pack, new_spec_color, mtl.specular_tm, surf.uvw,
+                           surf.duvw, taps=taps))
+
+
 def _direct_light(pack, cfg: RenderConfig, surf: Surface, mtl: Mtl,
-                  new_spec_color, vn, vv, u, mask, reorder: bool = True,
-                  pmap=None):
-    """PathTracing_DiffuseNSpecular (MtlBlinn.cpp:304-351), untextured:
-    (clamped direct term (N,3), shadow queries). With a photon map, the
-    caustic gather is added before the clamp (MtlBlinn.cpp:329-342)."""
+                  new_spec_color, diff, spec, vn, vv, u, mask,
+                  reorder: bool = True, pmap=None):
+    """PathTracing_DiffuseNSpecular (MtlBlinn.cpp:304-351): (clamped direct
+    term (N,3), shadow queries). The light pick takes the untextured
+    colours (mtl.diffuse, new_spec_color), the BRDF the textured ones
+    (diff, spec: _surface_colors). With a photon map, the caustic gather
+    is added before the clamp (MtlBlinn.cpp:329-342)."""
     lidx = _select_light(pack, u[:, 7])
     vl = _sample_in_light(pack, lidx, surf, mtl, new_spec_color, u)
     cos_theta = dot(vl, vn)
     irrad, n_shadow = _illuminate(pack, cfg, lidx, surf.p, u[:, 5:7],
                                   mask & (cos_theta > 0), reorder)
     hn = torch.clamp_min(dot(normalize(vl + vv), vn), 0.0)
-    brdf_cos = (mtl.diffuse * cos_theta[:, None]
-                + new_spec_color * safe_pow(hn, mtl.gloss)[:, None])
+    brdf_cos = (diff * cos_theta[:, None]
+                + spec * safe_pow(hn, mtl.gloss)[:, None])
     out = torch.where((cos_theta > 0)[:, None], irrad * brdf_cos, 0.0)
     if pmap is not None:
         c_irr, c_vl = gather_irradiance(pmap, surf.p, vn,
                                         k=cfg.photon_gather_max)
         c_cos = -dot(c_vl, vn)
         c_hn = torch.clamp_min(dot(normalize(c_vl + vv), vn), 0.0)
-        c_brdf = mtl.diffuse + new_spec_color * (
+        c_brdf = diff + spec * (
             safe_pow(c_hn, mtl.gloss) / torch.clamp_min(c_cos, 1e-30))[:, None]
         out = out + torch.where((c_cos > 0)[:, None], c_brdf * c_irr, 0.0)
     out = _clamp_white(out)
@@ -279,9 +303,10 @@ def _gi_env(pack, gi_d, albedo):
 
 
 def _gi_sample(pack, cfg: RenderConfig, surf: Surface, mtl: Mtl,
-               new_spec_color, vn, vv, u):
-    """PathTracing_GlobalIllumination's lobe (MtlBlinn.cpp:354-433),
-    untextured: (gi_o, gi_dir, albedo, env_term)."""
+               new_spec_color, diff, spec, vn, vv, u):
+    """PathTracing_GlobalIllumination's lobe (MtlBlinn.cpp:354-433): (gi_o,
+    gi_dir, albedo, env_term). The lobe choice takes the untextured
+    colours, the albedo the textured ones (diff, spec)."""
     kd = mtl.diffuse.amax(1)
     ks = new_spec_color.amax(1)
     d_dir, p_dt = sample_in_semisphere(vn, u[:, 0], u[:, 1])
@@ -292,7 +317,7 @@ def _gi_sample(pack, cfg: RenderConfig, surf: Surface, mtl: Mtl,
     p_st = safe_pow(s_cos, mtl.gloss)
     use_spec = u[:, 4] >= safe_div(kd * p_dt, kd * p_dt + ks * p_st)
     gi_dir = torch.where(use_spec[:, None], s_dir, d_dir)  # spec unnormalised
-    albedo = torch.where(use_spec[:, None], new_spec_color, mtl.diffuse)
+    albedo = torch.where(use_spec[:, None], spec, diff)
     return (surf.p + vn * cfg.bias, gi_dir, albedo,
             _gi_env(pack, gi_dir, albedo))
 
@@ -330,16 +355,18 @@ def _shade_fused(pack, cfg: RenderConfig, o, d, hit, shade, u_tab,
 
 
 def _shade_unfused(pack, cfg: RenderConfig, o, d, hit, shade, u_tab,
-                   reorder: bool = True, pmap=None) -> Shading:
+                   reorder: bool = True, pmap=None, dd_x=None,
+                   dd_y=None) -> Shading:
     """The same step from the separate functions (pathtracer.py:736-774,
     847-849): the JAX package's XLA shading path, for any number of
     instances, materials and lights (none included: the direct term is
-    then zero). Renders with a photon map take it, with the caustic gather
-    in the direct term, and so do scenes beyond the fused kernel's tables
-    (ops/shade.py:shade_setup_supported); it is also the plain composition
-    the tests hold the fused kernel to, and the path textured scenes will
-    take (ROADMAP Queue 1, item 8)."""
-    surf = resolve_hit(pack, o, d, hit)
+    then zero). Textured scenes take it, with the hit's texture
+    coordinates and, on planes, their ray differentials from the camera's
+    pixel deltas dd_x, dd_y; renders with a photon map take it, with the
+    caustic gather in the direct term; and so do scenes beyond the fused
+    kernel's tables (ops/shade.py:shade_setup_supported). It is also the
+    plain composition the tests hold the fused kernel to."""
+    surf = resolve_hit(pack, o, d, hit, dd_x, dd_y)
     mtl = _fetch_mtl(pack, surf.mtl)
     vn = surf.n
     vv = normalize(o - surf.p)
@@ -349,10 +376,13 @@ def _shade_unfused(pack, cfg: RenderConfig, o, d, hit, shade, u_tab,
     r0 = r0_base * r0_base
     fres = r0 + (1.0 - r0) * safe_pow(1.0 - cos_phi1, 5.0)
     new_spec = _clamp_white(mtl.specular + fres[:, None] * mtl.refraction)
-    direct, n_shadow = _direct_light(pack, cfg, surf, mtl, new_spec, vn, vv,
-                                     u_tab[:, :8], shade, reorder, pmap)
+    diff, spec = _surface_colors(pack, cfg, surf, mtl, new_spec)
+    direct, n_shadow = _direct_light(pack, cfg, surf, mtl, new_spec, diff,
+                                     spec, vn, vv, u_tab[:, :8], shade,
+                                     reorder, pmap)
     gi_o, gi_d, gi_albedo, gi_env = _gi_sample(pack, cfg, surf, mtl, new_spec,
-                                               vn, vv, u_tab[:, 8:13])
+                                               diff, spec, vn, vv,
+                                               u_tab[:, 8:13])
     return Shading(surf=surf, direct=direct, n_shadow=n_shadow,
                    refr_eff=(1.0 - fres)[:, None] * mtl.refraction,
                    cos_phi1=cos_phi1, gi_o=gi_o, gi_d=gi_d,
@@ -419,7 +449,7 @@ def _refraction_chain(pack, cfg: RenderConfig, surf: Surface, mtl: Mtl, vn,
         ray_o = torch.where(live[:, None], s["p"] - s["nrm"] * cfg.bias, miss_o)
         ray_d = torch.where(live[:, None], s["d"], miss_d)
         hit = trace_closest(pack, ray_o, ray_d, "both")
-        sres = resolve_hit(pack, ray_o, ray_d, hit)
+        sres = resolve_hit(pack, ray_o, ray_d, hit, minimal=True)
         miss = live & ~hit.hit
         front_hit = live & hit.hit & hit.front
         back_hit = live & hit.hit & ~hit.front
@@ -498,7 +528,10 @@ def _refraction_chain(pack, cfg: RenderConfig, surf: Surface, mtl: Mtl, vn,
 
 
 def _shade_level(pack, cfg: RenderConfig, tasks: Tasks, level: int, key,
-                 pmap=None):
+                 pmap=None, dd_x=None, dd_y=None):
+    """One tree level (pathtracer.py:625-920); dd_x, dd_y are the camera's
+    pixel deltas, which the unfused step's plane ray differentials read at
+    every level (the reference's globals)."""
     n = tasks.o.shape[0]
     act = tasks.active[:, None]
     o = torch.where(act, tasks.o, _vec(_MISS_O, tasks.o))
@@ -513,9 +546,11 @@ def _shade_level(pack, cfg: RenderConfig, tasks: Tasks, level: int, key,
     if shade_setup_supported(pack, cfg, pmap):
         sh = _shade_fused(pack, cfg, o, d, hit, shade, u_tab, reorder)
     else:
-        # A photon gather, or tables beyond the fused kernel's: the
-        # reference shades such scenes unfused too (pathtracer.py:710).
-        sh = _shade_unfused(pack, cfg, o, d, hit, shade, u_tab, reorder, pmap)
+        # Texture maps, a photon gather, or tables beyond the fused
+        # kernel's: the reference shades such scenes unfused too
+        # (pathtracer.py:710).
+        sh = _shade_unfused(pack, cfg, o, d, hit, shade, u_tab, reorder, pmap,
+                            dd_x, dd_y)
     surf = sh.surf
 
     # --- refraction chain on compacted refractive lanes ---
@@ -664,13 +699,16 @@ def _level_key(key, level: int):
 def _raygen(pack, cfg, cam, width: int, height: int, chunk: int, start: int,
             ck):
     """Camera rays of lanes start..start+chunk (clamped to the last pixel)
-    and their background colours (pathtracer.py:1108-1153)."""
+    and their background colours, sampled at the pixel's uv (px/width,
+    py/height, 0) (pathtracer.py:1108-1153)."""
     idx = torch.clamp_max(start + torch.arange(chunk, device=ck.device),
                           width * height - 1)
     px, py = idx % width, idx // width
     u = rng.uniform(rng.fold_in(ck, 0), (chunk, 2))
     o, d = gen_rays(cam, width, height, px, py, u)
-    return o, d, sample_background(pack, chunk)
+    bg_uv = torch.stack([px.float() / width, py.float() / height,
+                         o.new_zeros(chunk)], -1)
+    return o, d, sample_background(pack, bg_uv)
 
 
 def render_chunk(pack, cfg: RenderConfig, cam, width: int, height: int,
@@ -679,6 +717,7 @@ def render_chunk(pack, cfg: RenderConfig, cam, width: int, height: int,
     LevelRecords."""
     ck = rng.fold_in(rng.fold_in(key, sample), start)
     o, d, bg = _raygen(pack, cfg, cam, width, height, chunk, start, ck)
+    _, dd_x, dd_y = camera_basis(cam, width, height)
     tasks = Tasks(o=o, d=d,
                   active=torch.ones(chunk, dtype=torch.bool, device=o.device),
                   bounce=torch.full((chunk,), cfg.tir_bounces,
@@ -686,7 +725,8 @@ def render_chunk(pack, cfg: RenderConfig, cam, width: int, height: int,
     recs = []
     for level in range(cfg.max_levels):
         rec, tasks, _ = _shade_level(pack, cfg, tasks, level,
-                                     _level_key(ck, level), photon_map)
+                                     _level_key(ck, level), photon_map,
+                                     dd_x, dd_y)
         recs.append(rec)
     rad = _combine_tree(cfg, recs, tasks.active)
     return torch.where(recs[0].hit[:, None], rad, bg), recs
@@ -707,8 +747,6 @@ def check_supported_render(pack, cfg: RenderConfig,
                       "ROADMAP Queue 1 item 14"),
         (cfg.adaptive_spp > 0, "adaptive_spp: adaptive sampling is ROADMAP "
                                "Queue 1 item 6 (rest)"),
-        (pack.n_texmaps > 0 or int(pack.bg_tm) >= 0 or int(pack.env_tm) >= 0,
-         "texture maps: textures are ROADMAP Queue 1 item 8"),
     ]
     for bad, what in todo:
         if bad:

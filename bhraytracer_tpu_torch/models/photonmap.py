@@ -183,7 +183,7 @@ def _photon_bounce(pack, cfg: RenderConfig, surf, mtl, ray_d, power, key,
           + normalize(cross(vn, cross(vn, vv))) * sin2[:, None])
     in_o = surf.p - vn * cfg.bias
     in_hit = trace_closest(pack, in_o, vt, "back")
-    in_surf = resolve_hit(pack, in_o, vt, in_hit)
+    in_surf = resolve_hit(pack, in_o, vt, in_hit, minimal=True)
     # Exit refraction with the material's own refraction glossiness.
     vn2 = in_surf.n
     vv2 = -normalize(vt)
@@ -220,7 +220,7 @@ def trace_photon_batch(pack, cfg: RenderConfig, key, n: int, caustic: bool):
     dep_pos, dep_dir, dep_pow, dep_valid = [], [], [], []
     for b in range(MAX_PHOTON_BOUNCES):
         hit = trace_closest(pack, o, d, "front")
-        surf = resolve_hit(pack, o, d, hit)
+        surf = resolve_hit(pack, o, d, hit, minimal=True)
         mtl = _fetch_mtl(pack, surf.mtl)
         alive = live & hit.hit
         # Deposit at non-first hits on photon surfaces (diffuse gray > 0).

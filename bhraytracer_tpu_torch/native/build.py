@@ -58,6 +58,11 @@ def get_lib():
             lib = ctypes.CDLL(so_path)
         except OSError:
             return None
+        lib.bhrt_png_unfilter.restype = ctypes.c_int
+        lib.bhrt_png_unfilter.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        ]
         lib.bhrt_bvh_build.restype = ctypes.c_int64
         lib.bhrt_bvh_build.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32,

@@ -23,7 +23,9 @@ All routes return the (t, key) contract of ops/stream.py, decoded by
 forms and have no counterpart.
 
 `resolve_hit` recomputes the surface interaction from the discrete hit ids
-(bhraytracer_tpu/ops/trace.py:793-995) for the refraction chain.
+(bhraytracer_tpu/ops/trace.py:793-995): the full form for shading, with
+texture coordinates and the plane's ray differentials, and the minimal
+form for the refraction chain and the photon build.
 """
 
 from __future__ import annotations
@@ -217,16 +219,23 @@ def trace_shadow(pack, o, d, t_max, shadow_bias: float,
                          **kw)
 
 
-def resolve_hit(pack, o, d, hit: Hit) -> Surface:
-    """Recompute the surface interaction from discrete hit ids, in the form
-    the refraction chain calls (bhraytracer_tpu/ops/trace.py:793-995 with
-    minimal=True, fast_rows=True): p, n, z and mtl, with the mesh branch
-    read from the packed (F,32) `resolve_rows` table (copies of the vertex
-    and normal pools). uvw and duvw are zero; texture coordinates come with
-    the texture slice."""
+def resolve_hit(pack, o, d, hit: Hit, dd_x=None, dd_y=None,
+                minimal: bool = False) -> Surface:
+    """Recompute the surface interaction from discrete hit ids
+    (bhraytracer_tpu/ops/trace.py:793-995, fast_rows=True: the mesh branch
+    reads the packed (F,32) `resolve_rows` table, copies of the vertex,
+    normal and uv pools).
+
+    dd_x/dd_y are the camera pixel deltas (3,), which the plane's ray
+    differentials use for secondary rays too (Plane.cpp:51-70, via the
+    reference's dd_x/dd_y globals); None stands for zeros. duvw is computed
+    only where the scene has texture maps to filter. `minimal=True`
+    computes only p, n, z and mtl (the refraction chain's and the photon
+    build's needs): uvw and duvw are zero."""
     n = o.shape[0]
     kind = hit.kind
     z3 = o.new_zeros((n, 3))
+    want_duvw = pack.n_texmaps > 0 and not minimal
     branches = {}
 
     if pack.n_sph:
@@ -241,9 +250,18 @@ def resolve_hit(pack, o, d, hit: Hit) -> Surface:
         inv2a = 1.0 / torch.clamp_min(2.0 * a, 1e-30)
         t_s = torch.where(hit.front, (-b - sq) * inv2a, (-b + sq) * inv2a)
         p_s = ol + t_s[:, None] * dl
+        if minimal:
+            uv_s = z3
+        else:
+            dn = normalize(p_s)
+            uv_s = torch.stack([
+                0.5 + torch.atan2(dn[:, 1], dn[:, 0]) / (2.0 * torch.pi),
+                0.5 - torch.asin(torch.clamp(dn[:, 2], -1.0, 1.0)) / torch.pi,
+                o.new_zeros(n)], -1)
         # N = local hit point (Sphere.cpp:57).
-        branches[KIND_SPHERE] = (t_s, p_s, p_s, pack.sph_mtl[si],
-                                 pack.sph_tm[si], s_itm, pack.sph_pos[si])
+        branches[KIND_SPHERE] = (t_s, p_s, p_s, uv_s, z3, z3,
+                                 pack.sph_mtl[si], pack.sph_tm[si], s_itm,
+                                 pack.sph_pos[si])
 
     if pack.n_pln:
         pi = hit.inst.clamp(0, pack.pln_itm.shape[0] - 1).long()
@@ -256,8 +274,29 @@ def resolve_hit(pack, o, d, hit: Hit) -> Surface:
         p_p = ol + t_p[:, None] * dl
         n_p = torch.zeros_like(p_p)
         n_p[:, 2] = 1.0
-        branches[KIND_PLANE] = (t_p, p_p, n_p, pack.pln_mtl[pi],
-                                pack.pln_tm[pi], p_itm, pack.pln_pos[pi])
+        uv_p = z3 if minimal else torch.stack(
+            [(1.0 + p_p[:, 0]) * 0.5, (1.0 + p_p[:, 1]) * 0.5,
+             o.new_zeros(n)], -1)
+        if want_duvw:
+            # Ray differentials (Plane.cpp:51-70): the LOCAL ray direction
+            # mixed with the WORLD-frame camera deltas, verbatim.
+            nd = normalize(dl)
+            scaled_t = t_p * torch.sqrt(torch.clamp_min(dot(dl, dl), 1e-30))
+            nd_n = dot(nd, n_p)
+            nd_n = torch.where(nd_n == 0, 1e-30, nd_n)
+
+            def plane_duvw(dd):
+                dd = z3 if dd is None else dd.expand(n, 3)
+                ddir = dd - dot(nd, dd, keepdim=True) * nd
+                dt = -(scaled_t * dot(ddir, n_p) / nd_n)
+                return (scaled_t[:, None] * ddir + dt[:, None] * nd) * 0.5
+
+            d0, d1 = plane_duvw(dd_x), plane_duvw(dd_y)
+        else:
+            d0 = d1 = z3
+        branches[KIND_PLANE] = (t_p, p_p, n_p, uv_p, d0, d1,
+                                pack.pln_mtl[pi], pack.pln_tm[pi], p_itm,
+                                pack.pln_pos[pi])
 
     if pack.n_msh:
         mi = hit.inst.clamp(0, pack.msh_itm.shape[0] - 1).long()
@@ -276,18 +315,18 @@ def resolve_hit(pack, o, d, hit: Hit) -> Surface:
         a0, a1, a2 = triangle_areas(v0, v1, v2, p_m, vn)
         asum = a0 + a1 + a2
         asum = torch.where(asum.abs() < 1e-30, 1e-30, asum)
-        n_m = ((a0 / asum)[:, None] * rows[:, 9:12]
-               + (a1 / asum)[:, None] * rows[:, 12:15]
-               + (a2 / asum)[:, None] * rows[:, 15:18])
+        b0, b1, b2 = ((a / asum)[:, None] for a in (a0, a1, a2))
+        n_m = b0 * rows[:, 9:12] + b1 * rows[:, 12:15] + b2 * rows[:, 15:18]
+        uv_m = z3 if minimal else (b0 * rows[:, 18:21] + b1 * rows[:, 21:24]
+                                   + b2 * rows[:, 24:27])
         m_ml = pack.msh_mtl[mi]
-        branches[KIND_MESH] = (t_m, p_m, n_m,
+        branches[KIND_MESH] = (t_m, p_m, n_m, uv_m, z3, z3,
                                torch.where(m_ml >= 0, m_ml,
                                            rows[:, 27].to(torch.int32)),
                                pack.msh_tm[mi], m_itm, pack.msh_pos[mi])
 
-    duvw = o.new_zeros((n, 2, 3))
     if not branches:
-        return Surface(p=z3, n=z3, uvw=z3, duvw=duvw,
+        return Surface(p=z3, n=z3, uvw=z3, duvw=o.new_zeros((n, 2, 3)),
                        mtl=torch.zeros_like(kind), z=o.new_zeros(n),
                        front=hit.front)
 
@@ -300,7 +339,10 @@ def resolve_hit(pack, o, d, hit: Hit) -> Surface:
             out = torch.where(m, branches[kd][i], out)
         return out
 
-    t, p_l, n_l, mtl, tm, itm, pos = (sel(i) for i in range(7))
+    t, p_l, n_l, mtl, tm, itm, pos = (sel(i) for i in (0, 1, 2, 6, 7, 8, 9))
+    uvw = z3 if minimal else sel(3)
+    duvw = (torch.stack([sel(4), sel(5)], 1) if want_duvw
+            else o.new_zeros((n, 2, 3)))
     # FromNodeCoords (scene.h:497-501): p -> tm p + pos, N -> itm^T N.
     return Surface(p=mat_vec(tm, p_l) + pos, n=normalize(mat_t_vec(itm, n_l)),
-                   uvw=z3, duvw=duvw, mtl=mtl, z=t, front=hit.front)
+                   uvw=uvw, duvw=duvw, mtl=mtl, z=t, front=hit.front)

@@ -9,6 +9,12 @@ the teapot's place). Each returns (pack, camera), the pack on the card
 unless `device` says otherwise; the camera is 64x48 until the caller sets
 its width and height.
 
+`textured_scene` loads `data/textured.xml` through the XML loader: the
+bench scene's objects with a checkerboard ground, a wood-textured sphere, a
+uv-mapped 4,608-face banner textured with china.png, and a textured
+background and environment (the port's stand-in for the reference's
+proj10, whose XML the repository does not hold).
+
 `crowd_scene` and `grid_scene` grow tiny_scene past limits that the first
 slices of the port refused and the JAX package renders: more instances,
 materials or lights than the fused shade kernel's tables hold, more than
@@ -28,11 +34,15 @@ import numpy as np
 from bhraytracer_tpu_torch.scene import desc as D
 from bhraytracer_tpu_torch.scene.compile import compile_scene
 from bhraytracer_tpu_torch.scene.obj_loader import load_obj
+from bhraytracer_tpu_torch.scene.xml_loader import load_scene
 
-_DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                     "assets", "Resource", "Data")
+ASSETS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                      "assets")
+_DATA = os.path.join(ASSETS, "Resource", "Data")
 TEAPOT = os.path.join(_DATA, "teapot.obj")
 TEAPOT_HIRES = os.path.join(_DATA, "teapot_hires.obj")
+TEXTURED_XML = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "data", "textured.xml")
 
 
 def tiny_scene_desc() -> D.SceneDesc:
@@ -117,6 +127,14 @@ def bench_scene(device=None):
 def bigmesh_scene(device=None):
     sd = bigmesh_scene_desc()
     return compile_scene(sd, device=device), sd.camera
+
+
+def textured_scene(device=None):
+    """data/textured.xml through load_scene, its Resource/ paths under the
+    repository's assets/ (6,016 faces: the flat stream route at levels >=
+    1, the BVH kernels at level 0)."""
+    return load_scene(TEXTURED_XML, resource_root=ASSETS, lenient=False,
+                      device=device)
 
 
 # name -> (extra spheres, extra planes, extra materials, lights): tiny

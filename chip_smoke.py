@@ -9,41 +9,51 @@ It needs one CUDA card, nvcc and g++. It builds the CUDA kernels (one nvcc
 per source, in parallel) and the host helper from the checkout's sources;
 holds each of the ten kernels against its plain PyTorch twin on the card
 at the main paths' shapes (480,000 lanes); holds the culling flat closest
-kernel (1) to its twin key for key on the closest calls a bench frame
-makes (the chain trips and the levels) and on a synthetic 8192-face mesh,
-the culling flat any-hit kernel (2) bit for bit on the frame's shadow
-calls (levels >= 1), each with per-ray cull counts and timed beside the
-BVH kernel on the same rays, kernel 3 with its device time, registers,
-occupancy and the launches of one shade step, kernels 4 and 5 with
-their results and per-ray box and triangle test counts equal to
-`bvh_walk_ref`'s on 16,384-lane subsets and with their device times,
+kernel (1) to its twin key for key on the closest calls a bench frame and
+a textured32 frame make (the chain trips and the levels) and on a
+synthetic 8192-face mesh, the culling flat any-hit kernel (2) bit for bit
+on those frames' shadow calls (levels >= 1), each with per-ray cull
+counts and timed beside the BVH kernel on the same rays, kernel 3 with
+its device time, registers, occupancy and the launches of one shade
+step, kernels 4 and 5 on the bench scene's level-0 rays and on the
+textured32 frame's level-0 calls (every lane against the brute-force
+twin) with their results and per-ray box and triangle test counts equal
+to `bvh_walk_ref`'s on 16,384-lane subsets and with their device times,
 registers and occupancy, kernel 8 at the photon build's 32,768 lanes,
 kernel 9 on a photon frame's shadow calls, and kernels 1, 2 and 4-9 on
 tables of 40 spheres and 40 planes; renders the scenes beyond the fused
 shade kernel's tables (scenes.LIMIT_SCENES, and one with a photon map) on
 the card against the CPU, and traces and renders a 204,800-face mesh
 through the BVH route; times both level-0 routes (BVH and stream) on the
-same rays; renders the three main paths through
+same rays; renders the five main paths through
 `render_image`, each once to warm and once timed with the kernels' launch
-counters set to 0 just before it: the bench scene (1,408 faces) at 800x600
-with bench.py's headline config, the big-mesh scene (111,616 faces) with
-bench.py's `_bigmesh_leg` config, and the mesh-free tiny scene with the
-caustic photon map (`_photon_leg`'s config, the map built first by
-`build_photon_map`); checks the images, a 64x48 render of the small scenes
-(the photon render with one map carried to both) and a 32x24 render of the
-big-mesh scene against the CPU twins; and prints the card, the numbers and
-one JSON line per result. The last line is the device line. Any failed
+counters set to 0 just before it (and the device memory's peak over it):
+the bench scene (1,408 faces) at 800x600 with bench.py's headline config,
+the big-mesh scene (111,616 faces) with bench.py's `_bigmesh_leg` config,
+the mesh-free tiny scene with the caustic photon map (`_photon_leg`'s
+config, the map built first by `build_photon_map`), and the textured scene
+(data/textured.xml through `load_scene`: checker, wood and china texture
+maps, a textured background and environment) with `_textured_leg`'s config
+(spp 4, one level, 1 filter tap) and with the headline's six levels at the
+default 32 taps; checks the images, a 64x48 render of the small scenes and
+of the textured scene (the photon render with one map carried to both) and
+a 32x24 render of the big-mesh scene and of the textured scene with a
+photon map against the CPU twins; and prints the card, the numbers and one
+JSON line per result. The last line is the device line. Any failed
 check raises and the script exits non-zero; so does a run without a CUDA
 card or outside a checkout.
 
-    python3 chip_smoke.py --profile [bench] [bigmesh] [photon]
+    python3 chip_smoke.py --profile [bench] [bigmesh] [photon] [textured]
+                                    [textured32]
 
 builds the kernels and profiles one warm frame of each named main path
 (all by default) with torch.profiler instead (launches, device busy time,
-kernels by device time, host operators by CPU time), writing the tables
-under chiprun_out/. The photon frame gathers from a map built before it.
+kernels by device time, host operators by CPU time, the texture lookups'
+device time), writing the tables under chiprun_out/. The photon frame
+gathers from a map built before it.
 
-    python3 chip_smoke.py --frames N [bench] [bigmesh] [photon]
+    python3 chip_smoke.py --frames N [bench] [bigmesh] [photon] [textured]
+                                     [textured32]
 
 builds the kernels and times N frames of each named main path after one
 warm frame (host clock around each frame, ending in a synchronise), one
@@ -88,10 +98,10 @@ DENSE = 4000  # photons in range of a lane near the focus (the sweep's tail)
 PHOTON_BATCH_LANES = 1 << 15  # a photon build round (the JAX default batch)
 # Small renders of the limit scenes: tests/test_torch_render.py's config.
 SMALL = dict(spp=1, gi_bounces=1, extra_refr_levels=1, tir_bounces=4)
-# Headline config of bench.py:167-176, less fused_levels (a TPU knob) and
-# texture_sample_count (the scenes have no textures).
+# Headline config of bench.py:167-176, less fused_levels (a TPU knob);
+# texture_sample_count=1 changes nothing on the untextured scenes.
 HEADLINE = dict(spp=1, gi_bounces=3, extra_refr_levels=2, tir_bounces=16,
-                chunk_rays=480000, refr_capacity=0.08)
+                chunk_rays=480000, refr_capacity=0.08, texture_sample_count=1)
 # bench.py:473-475 (_bigmesh_leg), less the same two knobs.
 BIGMESH = dict(spp=1, gi_bounces=1, extra_refr_levels=1, tir_bounces=8,
                chunk_rays=480000)
@@ -101,10 +111,19 @@ BIGMESH = dict(spp=1, gi_bounces=1, extra_refr_levels=1, tir_bounces=8,
 # build_photon_map's default batch.
 PHOTON = dict(spp=1, gi_bounces=3, extra_refr_levels=2, tir_bounces=16,
               chunk_rays=480000, use_photon_map=True, photon_count=1 << 17)
+# bench.py:412-419 (_textured_leg), less fused_levels, on the port's
+# textured scene (data/textured.xml through load_scene), with one
+# 480,000-lane chunk; and HEADLINE's six levels at spp 1 with the default
+# 32-tap texture filter.
+TEXTURED = dict(spp=4, gi_bounces=0, extra_refr_levels=0, tir_bounces=16,
+                chunk_rays=480000, texture_sample_count=1)
+TEXTURED32 = dict(HEADLINE, texture_sample_count=32)
 # name -> (scene function of bhraytracer_tpu_torch.scenes, config)
 PATHS = {"bench": ("bench_scene", HEADLINE),
          "bigmesh": ("bigmesh_scene", BIGMESH),
-         "photon": ("tiny_scene", PHOTON)}
+         "photon": ("tiny_scene", PHOTON),
+         "textured": ("textured_scene", TEXTURED),
+         "textured32": ("textured_scene", TEXTURED32)}
 
 KERNELS = {
     "bhrt_stream_closest": dict(
@@ -165,6 +184,23 @@ SPHERE_OPS = 67  # local ray 33, quadratic 22, roots and selects 12
 PLANE_OPS = 45  # local ray 33, t 2, extent and side 10
 # A photon pair test: difference 3, squared distance 5, compare 1.
 PAIR_OPS = 9
+
+
+def render_config(cfg_kw):
+    """RenderConfig(**cfg_kw). Only in a checkout from before texture maps,
+    whose RenderConfig has no texture_sample_count (a field that changes
+    nothing on the untextured scenes), is that one field left out, so that
+    --timing, --frames and --profile of the untextured paths still run from
+    a copy of this script placed in one; any other unknown field raises."""
+    import dataclasses
+
+    from bhraytracer_tpu_torch.config import RenderConfig
+
+    if "texture_sample_count" not in {
+            f.name for f in dataclasses.fields(RenderConfig)}:
+        cfg_kw = {k: v for k, v in cfg_kw.items()
+                  if k != "texture_sample_count"}
+    return RenderConfig(**cfg_kw)
 
 
 def check(ok: bool, what: str) -> None:
@@ -345,7 +381,7 @@ def level0(pack, cam, dev, cfg_kw=HEADLINE):
     from bhraytracer_tpu_torch.ops.camera import from_scene_camera
     from bhraytracer_tpu_torch.ops.trace import trace_closest
 
-    cfg = PT.RenderConfig(**cfg_kw)
+    cfg = render_config(cfg_kw)
     key = rng.fold_in(rng.fold_in(rng.prng_key(0, dev), 0), 0)
     o, d, _ = PT._raygen(pack, cfg, from_scene_camera(cam, dev), 800, 600,
                          LANES, 0, key)
@@ -602,14 +638,14 @@ def compare_shade(pack, cam, dev):
     }
 
 
-def subset(dev):
+def subset(dev, n: int = LANES):
     """The fixed lanes the brute-force twins check on the big-mesh scene:
-    SUBSET lanes spread evenly over the 480,000, in runs of 128."""
+    SUBSET lanes spread evenly over the n (480,000), in runs of 128."""
     import torch
 
     run = 128
     nb = SUBSET // run
-    starts = torch.arange(nb, device=dev) * (LANES // run // nb)
+    starts = torch.arange(nb, device=dev) * (n // run // nb)
     return (starts[:, None] * run
             + torch.arange(run, device=dev)).reshape(-1)
 
@@ -785,6 +821,56 @@ def compare_bvh(bench, big, cam, dev):
             "rays, bench scene (1408 faces)", bigmesh=ga, walk_lanes=walked),
     }
     return out, res["route_bench"]
+
+
+def compare_bvh_calls(pack, dev, calls, what):
+    """Kernels 4 and 5 on a frame's level-0 calls (`calls`, the "closest"
+    and "anyhit" lists of record_frame_calls): each call's result against
+    its brute-force twin on every lane, and its result and per-ray box and
+    triangle test counts against bvh_walk_ref's on SUBSET lanes of it; each
+    call timed through the wrapper and on the device. `what` names the
+    frame. Returns per kernel the largest error, lanes compared, lanes
+    walked, tests a ray and the calls' times."""
+    from bhraytracer_tpu_torch.ops import bvh as B
+    from bhraytracer_tpu_torch.ops.trace import analytic_tables
+
+    check(len(calls["closest"]) > 0 and len(calls["anyhit"]) > 0,
+          f"{what}: no BVH call recorded")
+    sph, pln = analytic_tables(pack)
+    tabs = bvh_tabs(pack)
+    errs, lanes, walked, tests, times = [], 0, 0, [], []
+    for o, d, ti, side in calls["closest"]:
+        t1, k1 = B.bvh_closest(*tabs, sph, pln, o, d, ti, side)
+        t0, k0 = B.bvh_closest_ref(pack.bvh_faces, sph, pln, o, d, ti,
+                                   B.SIDES[side])
+        errs.append(compare_exact(f"bvh_closest ({what})", t1, k1, t0, k0))
+        c, n = walk_counts(pack, sph, pln, o, d, ti,
+                           subset(dev, o.shape[0]), B.SIDES[side])
+        lanes += o.shape[0]
+        walked += n
+        tests.append(c.double().mean(0).tolist())
+        times.append(bvh_times(tabs, sph, pln, o, d, ti, side))
+    closest = dict(max_abs_err=max(errs), lanes_compared=lanes,
+                   walk_lanes=walked, tests_per_ray=tests, calls=times)
+    n_bad, n_occ, lanes, walked, tests, times = 0, 0, 0, 0, [], []
+    for o, d, tm, *shadow in calls["anyhit"]:
+        a1 = B.bvh_anyhit(*tabs, sph, pln, o, d, tm, *shadow)
+        a0 = B.bvh_anyhit_ref(pack.bvh_faces, sph, pln, o, d, tm, *shadow)
+        n_bad += int((a1 != a0).sum())
+        n_occ += int(a0.sum())
+        c, n = walk_counts(pack, sph, pln, o, d, tm, subset(dev, o.shape[0]),
+                           shadow=tuple(shadow))
+        lanes += o.shape[0]
+        walked += n
+        tests.append(c.double().mean(0).tolist())
+        times.append(bvh_times(tabs, sph, pln, o, d, tm, shadow=shadow))
+    check(n_bad == 0, f"bvh_anyhit ({what}): {n_bad} of {lanes} lanes differ "
+          "from the twin")
+    check(n_occ > 0, f"bvh_anyhit ({what}): no occluded lane")
+    anyhit = dict(max_abs_err=float(n_bad), lanes_compared=lanes,
+                  occluded=n_occ, walk_lanes=walked, tests_per_ray=tests,
+                  calls=times)
+    return {"bhrt_bvh_closest": closest, "bhrt_bvh_anyhit": anyhit}
 
 
 def cull_stats(counts, n_faces: int) -> dict:
@@ -1001,37 +1087,51 @@ def compare_analytic(tiny, cam, dev, pmap):
     }
 
 
-def record_flat_calls(pack, cam):
-    """The flat trace calls of one bench frame at 800x600 with the headline
-    config, as the render makes them: the closest-hit calls (kernel 1), (o,
-    d, t_init, side) of each (side "both" for the refraction chain's trips,
-    "front" for the levels >= 1), and the shadow calls (kernel 2, the
-    levels >= 1), (o, d, t_max, t_min, ana_bias, plane_world_bug) of each;
-    all cloned."""
+def record_frame_calls(pack, cam, cfg_kw=HEADLINE):
+    """The trace calls of one frame at 800x600 (seed 1, as the main path's
+    timed frame) with config `cfg_kw`, as the render makes them: the flat
+    closest-hit calls (kernel 1), (o, d, t_init, side) of each (side "both"
+    for the refraction chain's trips, "front" for the levels >= 1), the
+    flat shadow calls (kernel 2, the levels >= 1), (o, d, t_max, t_min,
+    ana_bias, plane_world_bug) of each, and the BVH calls (kernels 4 and 5,
+    level 0) in the same two forms under "closest" and "anyhit"; all
+    cloned."""
     import bhraytracer_tpu_torch as B
     from bhraytracer_tpu_torch.ops import trace as T
 
     calls, shadows = [], []
-    closest, anyhit = T.stream_closest, T.stream_anyhit
+    bvh = dict(closest=[], anyhit=[])
+    saved = (T.stream_closest, T.stream_anyhit, T.bvh_closest, T.bvh_anyhit)
 
-    def record(rows, sph, pln, o, d, t_init, side, **kw):
-        calls.append((o.clone(), d.clone(), t_init.clone(), side))
-        return closest(rows, sph, pln, o, d, t_init, side, **kw)
+    # Each wrapper takes its n_tabs tables, then sph, pln, o, d and four
+    # more arguments positionally (trace.py's calls).
+    def closest_rec(fn, out, n_tabs):
+        def call(*args, **kw):
+            o, d, t_init, side = args[n_tabs + 2:]
+            out.append((o.clone(), d.clone(), t_init.clone(), side))
+            return fn(*args, **kw)
+        return call
 
-    def record_shadow(rows, sph, pln, o, d, t_max, t_min, ana_bias=0.0,
-                      plane_world_bug=False, **kw):
-        shadows.append((o.clone(), d.clone(), t_max.clone(), t_min, ana_bias,
-                        plane_world_bug))
-        return anyhit(rows, sph, pln, o, d, t_max, t_min, ana_bias,
-                      plane_world_bug, **kw)
+    def anyhit_rec(fn, out, n_tabs):
+        def call(*args, ana_bias=0.0, plane_world_bug=False, **kw):
+            o, d, t_max, t_min = args[n_tabs + 2:]
+            out.append((o.clone(), d.clone(), t_max.clone(), t_min,
+                        ana_bias, plane_world_bug))
+            return fn(*args, ana_bias=ana_bias,
+                      plane_world_bug=plane_world_bug, **kw)
+        return call
 
-    T.stream_closest, T.stream_anyhit = record, record_shadow
+    T.stream_closest = closest_rec(saved[0], calls, 1)
+    T.stream_anyhit = anyhit_rec(saved[1], shadows, 1)
+    T.bvh_closest = closest_rec(saved[2], bvh["closest"], 3)
+    T.bvh_anyhit = anyhit_rec(saved[3], bvh["anyhit"], 3)
     try:
         cam.width, cam.height = 800, 600
-        B.render_image(pack, cam, B.RenderConfig(**HEADLINE), seed=1)
+        B.render_image(pack, cam, render_config(cfg_kw), seed=1)
     finally:
-        T.stream_closest, T.stream_anyhit = closest, anyhit
-    return calls, shadows
+        (T.stream_closest, T.stream_anyhit, T.bvh_closest,
+         T.bvh_anyhit) = saved
+    return calls, shadows, bvh
 
 
 def exact_lanes(t1, k1, t0, k0) -> int:
@@ -1039,18 +1139,17 @@ def exact_lanes(t1, k1, t0, k0) -> int:
     return int(((t1 != t0) | (k1 != k0)).sum())
 
 
-def compare_flat(pack, cam, dev, calls, shadows, grid, grid_cam):
-    """Kernel 1 against its twin, key for key: on every closest call of a
-    bench frame (`calls`: the chain trips and the levels), and on 480K rays
-    from the level-0 hits toward the synthetic 8192-face height field
-    `grid` (`aimed`), with per-ray cull counts; each timed beside the BVH
-    kernel on the same rays. Kernel 2 the same way on the frame's shadow
-    calls (`shadows`), bit for bit on every lane."""
+def compare_frame_calls(pack, dev, calls, shadows, what):
+    """Kernel 1 against its twin, key for key, on every closest call of a
+    frame (`calls`: the chain trips and the levels), and kernel 2 bit for
+    bit on every lane of the frame's shadow calls (`shadows`), with per-ray
+    cull counts; each timed beside the BVH kernel on the same rays. `what`
+    names the frame. Returns the results by kind and the lanes compared of
+    each kernel."""
     import torch
 
     from bhraytracer_tpu_torch.ops import bvh as B
     from bhraytracer_tpu_torch.ops import stream as K
-    from bhraytracer_tpu_torch.ops.linalg import BIG
     from bhraytracer_tpu_torch.ops.trace import analytic_tables
 
     sph, pln = analytic_tables(pack)
@@ -1102,13 +1201,14 @@ def compare_flat(pack, cam, dev, calls, shadows, grid, grid_cam):
             **bound(sum(nbytes(rows, *boxes, sph, pln, o, d, ti) + o.shape[0]
                         * 8 for o, d, ti, _ in part),
                     sum(w["ops"] for w in work)))
-    check(bad == 0, f"stream_closest: {bad} of {lanes} lanes of the bench "
+    check(bad == 0, f"stream_closest: {bad} of {lanes} lanes of the {what} "
           "frame's calls differ from the twin")
-    check(res["chain"]["calls"] > 0, "stream_closest: no chain trip recorded")
+    check(res["chain"]["calls"] > 0,
+          f"stream_closest: no chain trip recorded ({what})")
 
     # The frame's shadow calls (kernel 2), against the twin and the BVH
     # any-hit kernel on the same rays.
-    check(len(shadows) > 0, "stream_anyhit: no shadow call recorded")
+    check(len(shadows) > 0, f"stream_anyhit: no shadow call recorded ({what})")
     counts, n_bad, n_occ, n_lanes = [], 0, 0, 0
     for o, d, tm, t_min, bias, bug in shadows:
         cnt = torch.empty((o.shape[0], 3), dtype=torch.int32, device=dev)
@@ -1120,8 +1220,9 @@ def compare_flat(pack, cam, dev, calls, shadows, grid, grid_cam):
         n_lanes += o.shape[0]
         counts.append(cnt)
     check(n_bad == 0, f"stream_anyhit: {n_bad} of {n_lanes} lanes of the "
-          "bench frame's shadow calls differ from the twin")
-    check(n_occ > 0, "stream_anyhit: no occluded lane in the frame's calls")
+          f"{what} frame's shadow calls differ from the twin")
+    check(n_occ > 0,
+          f"stream_anyhit: no occluded lane in the {what} frame's calls")
 
     def run_shadow():
         for o, d, tm, t_min, bias, bug in shadows:
@@ -1147,8 +1248,24 @@ def compare_flat(pack, cam, dev, calls, shadows, grid, grid_cam):
                 sum(occlusion_ops(pack, o, d, tm, t_min, bias)["ops"]
                     for o, d, tm, t_min, bias, _ in shadows)))
 
+    return res, lanes, n_lanes
+
+
+def compare_flat(pack, cam, dev, calls, shadows, grid, grid_cam):
+    """Kernels 1 and 2 on a bench frame's calls (compare_frame_calls), and
+    kernel 1 against its twin, key for key, on 480K rays from the level-0
+    hits toward the synthetic 8192-face height field `grid` (`aimed`), with
+    per-ray cull counts, timed beside the BVH kernel on the same rays."""
+    import torch
+
+    from bhraytracer_tpu_torch.ops import bvh as B
+    from bhraytracer_tpu_torch.ops import stream as K
+    from bhraytracer_tpu_torch.ops.linalg import BIG
+    from bhraytracer_tpu_torch.ops.trace import analytic_tables, trace_route
+
+    res, lanes, n_lanes = compare_frame_calls(pack, dev, calls, shadows,
+                                              "bench")
     # The synthetic 8192-face mesh: the route's largest.
-    from bhraytracer_tpu_torch.ops.trace import trace_route
 
     check(trace_route(grid, True) == "stream"
           and grid.wtri_v0.shape[0] == K.STREAM_MAX_FACES,
@@ -1472,7 +1589,7 @@ def save_inputs(dev, path):
     tiny_shadow = shadow_rays(tiny, cfg_t, o, d, hit, shade, u_tab)
     pmap = build_photon_map(tiny, B.RenderConfig(**PHOTON), seed=1)
     photon_shadows = record_analytic_shadows(tiny, tcam, pmap)
-    calls, shadows = record_flat_calls(pack, cam)
+    calls, shadows, _ = record_frame_calls(pack, cam)
     data = dict(
         t_init=torch.full((LANES,), BIG, device=dev),
         bench=dict(rows=pack.stream_rows, boxes=flat_boxes(pack),
@@ -1558,7 +1675,7 @@ def time_inputs(dev, card, path):
             device_ms=device_ms(run_calls, 3, ("closest_kernel",)))
 
     part = data["bench"]
-    cfg = B.RenderConfig(**HEADLINE)
+    cfg = render_config(HEADLINE)
 
     def shadow(o, d, tm, t_min=MESH_SHADOW_BIAS, bias=cfg.shadow_bias,
                bug=False):
@@ -1985,16 +2102,18 @@ def compare_photon(tiny, cam, dev, pmap):
 
 def render_main_path(pack, cam, dev, cfg_kw, name):
     """One main path at 800x600: warm, then timed with the launch counters
-    from 0 just before it and read just after."""
+    from 0 just before it and read just after, and the device memory's
+    peak over the timed call."""
     import torch
 
     import bhraytracer_tpu_torch as B
     from bhraytracer_tpu_torch.ops import kernels
 
-    cfg = B.RenderConfig(**cfg_kw)
+    cfg = render_config(cfg_kw)
     cam.width, cam.height = 800, 600
     B.render_image(pack, cam, cfg, seed=0)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     kernels.LAUNCHES.clear()
     t0 = time.perf_counter()
     img, st = B.render_image(pack, cam, cfg, seed=1, return_stats=True)
@@ -2003,6 +2122,7 @@ def render_main_path(pack, cam, dev, cfg_kw, name):
     img = img.cpu()
     t_image = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
     n_chunks = -(-800 * 600 // cfg.chunk_rays)
     check(tuple(img.shape) == (600, 800, 3), f"{name}: image shape "
           f"{tuple(img.shape)}")
@@ -2014,6 +2134,7 @@ def render_main_path(pack, cam, dev, cfg_kw, name):
                 ms_per_chunk=t_render / n_chunks * 1e3,
                 image_wall_s=t_image, drop_refr=st.drop_refr,
                 drop_tir=st.drop_tir, drop_gi=st.drop_gi,
+                peak_memory_gib=peak / 2 ** 30,
                 image_mean=float(img.mean())), launches
 
 
@@ -2092,13 +2213,20 @@ def render_photon_path(pack, cam, dev, pmap):
 
 def small_render_vs_cpu(dev):
     """Renders on the card (kernels) and on the CPU (twins): 64x48 of the
-    small scenes, 32x24 of the big-mesh scene; the test suite's tolerances
-    (tests/test_torch_render.py) and equal segment counts."""
+    small scenes and of the textured scene (32 filter taps), 32x24 of the
+    big-mesh scene and of the textured scene with a photon map; the test
+    suite's tolerances (tests/test_torch_render.py) and equal segment
+    counts."""
     import torch
 
     import bhraytracer_tpu_torch as B
     from bhraytracer_tpu_torch.models.photonmap import build_photon_map
-    from bhraytracer_tpu_torch.scenes import bench_scene, bigmesh_scene, tiny_scene
+    from bhraytracer_tpu_torch.scenes import (
+        bench_scene,
+        bigmesh_scene,
+        textured_scene,
+        tiny_scene,
+    )
 
     res = {}
     for name, fn, (w, h), cfg_kw in (
@@ -2106,7 +2234,10 @@ def small_render_vs_cpu(dev):
             ("tiny_photon", tiny_scene, (64, 48),
              dict(use_photon_map=True, photon_count=1 << 14)),
             ("bench", bench_scene, (64, 48), {}),
-            ("bigmesh", bigmesh_scene, (32, 24), BIGMESH)):
+            ("bigmesh", bigmesh_scene, (32, 24), BIGMESH),
+            ("textured", textured_scene, (64, 48), {}),
+            ("textured_photon", textured_scene, (32, 24),
+             dict(use_photon_map=True, photon_count=1 << 14))):
         cfg = B.RenderConfig(**{**dict(spp=1, gi_bounces=1, extra_refr_levels=1,
                                        tir_bounces=4), **cfg_kw,
                                 "chunk_rays": w * h})
@@ -2139,13 +2270,12 @@ def frame_inputs(name, dev):
     """(pack, camera at 800x600, config, render_image keywords) of a main
     path; the photon path's keywords carry a map built for it (seed 1, as
     render_image builds it)."""
-    import bhraytracer_tpu_torch as B
     from bhraytracer_tpu_torch import scenes
 
     scene, cfg_kw = PATHS[name]
     pack, cam = getattr(scenes, scene)(dev)
     cam.width, cam.height = 800, 600
-    cfg = B.RenderConfig(**cfg_kw)
+    cfg = render_config(cfg_kw)
     kw = {}
     if name == "photon":
         from bhraytracer_tpu_torch.models.photonmap import build_photon_map
@@ -2154,15 +2284,54 @@ def frame_inputs(name, dev):
     return pack, cam, cfg, kw
 
 
+TEXTURE_RANGE = "bhrt_texture"
+
+
+@contextlib.contextmanager
+def texture_ranges():
+    """Within the block, each call of the port's texture lookups
+    (ops/texturing.py: texmap_sample, which every textured colour,
+    background and environment sample goes through, and environment_uvw)
+    runs in a torch.profiler range named TEXTURE_RANGE, whose row in the
+    profile's tables carries the device time of the kernels launched in
+    it. The hit's texture coordinates (ops/trace.py:resolve_hit) are not
+    counted. A checkout without these functions is left as it is."""
+    from torch.profiler import record_function
+
+    from bhraytracer_tpu_torch.ops import texturing as TX
+
+    saved = {k: getattr(TX, k) for k in ("texmap_sample", "environment_uvw")
+             if hasattr(TX, k)}
+
+    def ranged(fn):
+        def call(*args, **kw):
+            with record_function(TEXTURE_RANGE):
+                return fn(*args, **kw)
+        return call
+
+    for k, fn in saved.items():
+        setattr(TX, k, ranged(fn))
+    try:
+        yield
+    finally:
+        for k, fn in saved.items():
+            setattr(TX, k, fn)
+
+
 def write_profile(prof, name, card, **extra):
     """Write a torch.profiler run's tables under chiprun_out/ and print its
-    launches, syncs, device busy time and the port's kernels."""
+    launches, syncs, device busy time, the port's kernels and the texture
+    lookups' ranges (texture_ranges: the device time of their kernels and
+    its share of the busy time, their host time, and their span on the
+    device's timeline)."""
     from torch.autograd import DeviceType
 
     ka = prof.key_averages()
     col = ("self_device_time_total"
            if hasattr(ka[0], "self_device_time_total")
            else "self_cuda_time_total")
+    total = ("device_time_total" if hasattr(ka[0], "device_time_total")
+             else "cuda_time_total")
     # Device time: the events that ran on the card (the operator rows above
     # them carry the same time again), as the table's total.
     kern = [e for e in ka if e.device_type == DeviceType.CUDA
@@ -2176,6 +2345,18 @@ def write_profile(prof, name, card, **extra):
     launches = sum(e.count for e in ka if e.key in (
         "cudaLaunchKernel", "cuLaunchKernel"))
     syncs = sum(e.count for e in ka if "Synchronize" in e.key)
+    # A range has two rows: the host's, whose device total is the time of
+    # the kernels launched in it, and the device timeline's, whose time is
+    # the span from its first kernel to its last, idle gaps included.
+    tex = [e for e in ka if e.key == TEXTURE_RANGE
+           and e.device_type == DeviceType.CPU]
+    span = [e for e in ka if e.key == TEXTURE_RANGE
+            and e.device_type == DeviceType.CUDA]
+    tex_ms = sum(getattr(e, total) for e in tex) / 1e3
+    texture = dict(calls=sum(e.count for e in tex), device_ms=tex_ms,
+                   device_share=tex_ms / max(dev_us / 1e3, 1e-9),
+                   host_ms=sum(e.cpu_time_total for e in tex) / 1e3,
+                   device_span_ms=sum(getattr(e, col) for e in span) / 1e3)
     table = ka.table(sort_by=col, row_limit=60)
     host = ka.table(sort_by="self_cpu_time_total", row_limit=40)
     with open(os.path.join(REPO, "chiprun_out", f"profile_{name}.txt"),
@@ -2184,17 +2365,19 @@ def write_profile(prof, name, card, **extra):
     print(json.dumps({"profile": name, "card": card, **extra,
                       "device_busy_ms": dev_us / 1e3,
                       "kernel_launches": launches, "syncs": syncs,
-                      "port_kernels_calls_ms": ours}))
+                      "port_kernels_calls_ms": ours,
+                      "texture_ranges": texture}))
     print(ka.table(sort_by=col, row_limit=15))
 
 
 def profile_frames(dev, card, names):
     """torch.profiler over one warm frame of each named main path:
     launches, device busy time, the kernels by device time and the host
-    operators by CPU time (tables under chiprun_out/). For the photon path
-    also one emission round of its map's build (build_photon_map runs such
-    rounds until the photons are collected or its round limit is reached),
-    at build_photon_map's default batch."""
+    operators by CPU time (tables under chiprun_out/), and the device time
+    of the texture lookups (texture_ranges). For the photon path also one
+    emission round of its map's build (build_photon_map runs such rounds
+    until the photons are collected or its round limit is reached), at
+    build_photon_map's default batch."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2210,7 +2393,7 @@ def profile_frames(dev, card, names):
         B.render_image(pack, cam, cfg, seed=1, **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        with profile(activities=acts) as prof:
+        with profile(activities=acts) as prof, texture_ranges():
             t0 = time.perf_counter()
             B.render_image(pack, cam, cfg, seed=1, **kw)
             torch.cuda.synchronize()
@@ -2323,6 +2506,7 @@ def main() -> int:
         bench_scene,
         bigmesh_scene,
         grid_scene,
+        textured_scene,
         tiny_scene,
     )
 
@@ -2340,14 +2524,34 @@ def main() -> int:
     per_kernel.update(compare_analytic(tiny, cam, dev, pmap))
     per_kernel.update(compare_photon(tiny, cam, dev, pmap))
     grid, grid_cam = grid_scene(64, dev)
-    flat, n_flat, n_shadow = compare_flat(pack, cam, dev,
-                                          *record_flat_calls(pack, cam),
+    calls, shadows, _ = record_frame_calls(pack, cam)
+    flat, n_flat, n_shadow = compare_flat(pack, cam, dev, calls, shadows,
                                           grid, grid_cam)
     k2 = per_kernel["bhrt_stream_anyhit"]
     k2.update(lanes_compared=k2["lanes_compared"] + n_shadow,
               frame_calls=flat.pop("shadow"))
     k1 = per_kernel["bhrt_stream_closest"]
     k1.update(lanes_compared=k1["lanes_compared"] + n_flat, **flat)
+    # Kernels 1, 2, 4 and 5 on every call of a textured32 frame: the
+    # textured scene has two mesh instances, each with its own transform.
+    tex_pack, tex_cam = textured_scene()
+    calls, shadows, bvh_calls = record_frame_calls(tex_pack, tex_cam,
+                                                   TEXTURED32)
+    tflat, n_flat, n_shadow = compare_frame_calls(tex_pack, dev, calls,
+                                                  shadows, "textured32")
+    k1.update(lanes_compared=k1["lanes_compared"] + n_flat,
+              textured32_calls=dict(chain=tflat["chain"],
+                                    levels=tflat["levels"]))
+    k2.update(lanes_compared=k2["lanes_compared"] + n_shadow,
+              textured32_calls=tflat["shadow"])
+    for k, v in compare_bvh_calls(tex_pack, dev, bvh_calls,
+                                  "textured32").items():
+        kb = per_kernel[k]
+        kb.update(max_abs_err=max(kb["max_abs_err"], v["max_abs_err"]),
+                  lanes_compared=kb["lanes_compared"] + v["lanes_compared"],
+                  walk_lanes=kb["walk_lanes"] + v["walk_lanes"],
+                  textured32_calls=v)
+    del calls, shadows, bvh_calls
     limits = compare_limits(dev)
     torch.cuda.synchronize()
     for k, v in per_kernel.items():
@@ -2375,6 +2579,14 @@ def main() -> int:
     print("flat any-hit kernel, cull on 480K level-0 bench shadow rays:",
           json.dumps(k2["cull"]), "and on a bench frame's shadow calls:",
           json.dumps(k2["frame_calls"]))
+    print("flat kernels on a textured32 frame's calls (closest key for key, "
+          "any-hit bit for bit; 6016 faces in two instances):",
+          json.dumps({"closest": k1["textured32_calls"],
+                      "anyhit": k2["textured32_calls"]}))
+    print("BVH kernels on a textured32 frame's level-0 calls (every lane "
+          "against the brute-force twin; results and counts against "
+          "bvh_walk_ref on subsets):",
+          json.dumps({k: per_kernel[k]["textured32_calls"] for k in BVH}))
     print("grouped any-hit kernel (7), cull on 480K sorted scattered "
           "big-mesh rays:", json.dumps(route_big["cull"]["anyhit"]))
     k3 = per_kernel["bhrt_shade_setup"]
@@ -2411,7 +2623,8 @@ def main() -> int:
               f"{paths[name]['ms_per_chunk']:.1f} ms/chunk, image wall "
               f"{paths[name]['image_wall_s']:.3f} s, drops refr/tir/gi "
               f"{paths[name]['drop_refr']}/{paths[name]['drop_tir']}/"
-              f"{paths[name]['drop_gi']}, segments {paths[name]['segments']}")
+              f"{paths[name]['drop_gi']}, segments {paths[name]['segments']}, "
+              f"peak device memory {paths[name]['peak_memory_gib']:.2f} GiB")
         print(f"launches {name}:", json.dumps(launches[name]))
     lb, lg = launches["bench"], launches["bigmesh"]
     for k in FLAT + BVH + ("bhrt_shade_setup",):
@@ -2427,7 +2640,7 @@ def main() -> int:
               f"{k} launched by a mesh render")
     # Level 0 (one closest and one shadow trace per pass over the levels)
     # is the BVH kernels' only caller on the bench scene.
-    levels = B.RenderConfig(**HEADLINE).max_levels
+    levels = render_config(HEADLINE).max_levels
     check(lb["bhrt_bvh_closest"] == lb["bhrt_bvh_anyhit"]
           == lb["bhrt_shade_setup"] // levels,
           "bench render: BVH launches other than level 0's")
@@ -2459,8 +2672,38 @@ def main() -> int:
     check(lp["bhrt_photon_sweep"] == 4 * B.RenderConfig(**PHOTON).max_levels,
           "photon render: sweeps other than four per level")
 
+    # The textured scene through load_scene: level 0 on the BVH kernels,
+    # the chain and the levels >= 1 on the flat stream kernels, shading
+    # unfused (the fused kernel gates itself off on texture maps).
+    for name, cfg_kw in (("textured", TEXTURED), ("textured32", TEXTURED32)):
+        paths[name], launches[name] = render_main_path(
+            tex_pack, tex_cam, dev, cfg_kw, name)
+        pt = paths[name]
+        print(f"main path {name} 800x600 ({card}): "
+              f"{pt['segs_per_s']:.0f} segs/s, {pt['ms_per_chunk']:.1f} "
+              f"ms/chunk, image wall {pt['image_wall_s']:.3f} s, drops "
+              f"refr/tir/gi {pt['drop_refr']}/{pt['drop_tir']}/"
+              f"{pt['drop_gi']}, segments {pt['segments']}, peak device "
+              f"memory {pt['peak_memory_gib']:.2f} GiB")
+        print(f"launches {name}:", json.dumps(launches[name]))
+        lt, cfg = launches[name], render_config(cfg_kw)
+        for k in FLAT[:1] + BVH:
+            check(lt.get(k, 0) > 0, f"{k} not launched by the {name} render")
+        for k in HBM + ANALYTIC + ("bhrt_shade_setup", "bhrt_photon_sweep"):
+            check(lt.get(k, 0) == 0, f"{k} launched by the {name} render")
+        # Level 0 is the BVH kernels' only caller, once a sample; every
+        # other level's shadow trace is kernel 2's.
+        check(lt["bhrt_bvh_closest"] == lt["bhrt_bvh_anyhit"] == cfg.spp,
+              f"{name} render: BVH launches other than level 0's")
+        check(lt.get("bhrt_stream_anyhit", 0)
+              == cfg.spp * (cfg.max_levels - 1),
+              f"{name} render: flat any-hit launches other than levels "
+              ">= 1's")
+    check(launches["textured32"].get("bhrt_stream_anyhit", 0) > 0,
+          "bhrt_stream_anyhit not launched by the textured32 render")
+
     tiny_cam.width, tiny_cam.height = 800, 600
-    timg = B.render_image(tiny_pack, tiny_cam, B.RenderConfig(**HEADLINE))
+    timg = B.render_image(tiny_pack, tiny_cam, render_config(HEADLINE))
     check(bool(torch.isfinite(timg).all()), "tiny_scene image not finite")
     print(json.dumps({"main_path": paths, "card": card}))
     print(json.dumps({"kernels": [

@@ -45,7 +45,14 @@ def teapot_desc(obj: str):
 def jax_scene(name: str):
     """(pack, camera) of the JAX package: "tiny" is
     __graft_entry__._tiny_scene, "bench" is bench._builtin_bench_scene,
-    "bigmesh" is bench._bigmesh_leg's scene (a pack with treelets)."""
+    "bigmesh" is bench._bigmesh_leg's scene (a pack with treelets),
+    "textured" is the port's data/textured.xml through the JAX package's
+    own XML loader."""
+    if name == "textured":
+        from bhraytracer_tpu.scene.xml_loader import load_scene
+        from bhraytracer_tpu_torch.scenes import ASSETS, TEXTURED_XML
+
+        return load_scene(TEXTURED_XML, resource_root=ASSETS, lenient=False)
     if name == "tiny":
         from __graft_entry__ import _tiny_scene
 

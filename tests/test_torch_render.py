@@ -147,9 +147,8 @@ def test_render_refuses_what_is_not_ported():
     with pytest.raises(NotImplementedError):
         render_image(pack, cam, checkpoint_dir="ckpt")
     # A tree deeper than the BVH kernels' per-ray stack is refused; any
-    # face count is taken.
+    # face count is taken, and texture maps are rendered
+    # (tests/test_torch_textured_render.py).
     bench = port_pack("bench")
-    for bad in (dataclasses.replace(pack, n_texmaps=1),
-                dataclasses.replace(bench, bvh_depth=STACK_DEPTH - 1)):
-        with pytest.raises(NotImplementedError):
-            render_image(bad, cam)
+    with pytest.raises(NotImplementedError):
+        render_image(dataclasses.replace(bench, bvh_depth=STACK_DEPTH - 1), cam)
