@@ -2,9 +2,10 @@
 
 One chunk driver, no TPU knobs: the JAX package's `ablate`,
 `fused_levels`, `level_presort`, `*_reorder`, `inflight_chunks` and
-`remat_levels` fields have no counterpart here. Options the port does not
-run yet (denoiser, gradients, depth of field, adaptive sampling) stay as
-fields so that `render_image` can refuse them by name.
+`remat_levels` fields have no counterpart here (per-level remat was the
+TPU's memory workaround for gradients). Options the port does not run yet
+(denoiser, depth of field, adaptive sampling) stay as fields so that
+`render_image` can refuse them by name.
 """
 
 from __future__ import annotations
@@ -59,10 +60,14 @@ class RenderConfig:
     photon_gather_radius: float = 0.5
     photon_absorb_chance: float = 0.3
     use_photon_map: bool = False
+    # Reverse-mode gradients (bhraytracer_tpu/config.py:75): the shade step
+    # runs unfused and mesh hits resolve through rows_from_pools, so that
+    # torch.autograd reaches materials, lights, camera, vertices and
+    # texture tables (models/pathtracer.py:_render_chunk).
+    differentiable: bool = False
 
     # Not ported yet: render_image raises NotImplementedError on each.
     use_denoiser: bool = False
-    differentiable: bool = False
     use_dof: bool = False
     adaptive_spp: int = 0
 

@@ -27,6 +27,16 @@ uniforms fold_in(level_key, 1), chain key fold_in(level_key, 2).
 
 The device is the pack's: on the card every trace and shade setup is a
 hand-written CUDA kernel; on the CPU the same code runs their twins.
+
+Gradients (cfg.differentiable): `_render_chunk` is a plain function of
+the pack's and the camera's tensors, and torch.autograd differentiates it
+as JAX differentiates the reference's `_render_chunk`: traces run on
+detached rays (ops/trace.py), so the kernels run forward only, and the
+shading math recomputes everything continuous from the frozen hit ids;
+the shade step is unfused, mesh hits resolve through rows rebuilt from
+the vertex pools (`rows_from_pools`), and every scatter is out of place.
+The refraction chain keeps its while loops: the JAX package's fixed-trip
+scans are a fixpoint of the same trips, so the values are equal.
 """
 
 from __future__ import annotations
@@ -48,7 +58,7 @@ from bhraytracer_tpu_torch.ops.camera import (
     from_scene_camera,
     gen_rays,
 )
-from bhraytracer_tpu_torch.ops.compact import partition_indices
+from bhraytracer_tpu_torch.ops.compact import lookup_rows, partition_indices
 from bhraytracer_tpu_torch.ops.linalg import (
     BIG,
     cross,
@@ -74,6 +84,7 @@ from bhraytracer_tpu_torch.ops.trace import (
     Surface,
     check_traceable,
     resolve_hit,
+    rows_from_pools,
     trace_closest,
     trace_shadow,
 )
@@ -123,6 +134,9 @@ class Tasks(NamedTuple):
 
 
 class ChunkStats(NamedTuple):
+    """Summed over a chunk's shade tree: ints from render_image, 0-dim
+    int64 tensors from trace_radiance / _render_chunk."""
+
     drop_refr: int
     drop_tir: int
     drop_gi: int
@@ -165,13 +179,11 @@ def _clamp_white(c):
 
 
 def _fetch_mtl(pack, mtl_id) -> Mtl:
-    i = mtl_id.clamp(0, pack.mtl_gloss.shape[0] - 1).long()
-    return Mtl(diffuse=pack.mtl_diffuse[i], diffuse_tm=pack.mtl_diffuse_tm[i],
-               specular=pack.mtl_specular[i],
-               specular_tm=pack.mtl_specular_tm[i], gloss=pack.mtl_gloss[i],
-               refraction=pack.mtl_refraction[i],
-               refr_gloss=pack.mtl_refr_gloss[i], ior=pack.mtl_ior[i],
-               absorption=pack.mtl_absorption[i])
+    i = mtl_id.clamp(0, pack.mtl_gloss.shape[0] - 1)
+    return Mtl(*(lookup_rows(t, i) for t in (
+        pack.mtl_diffuse, pack.mtl_diffuse_tm, pack.mtl_specular,
+        pack.mtl_specular_tm, pack.mtl_gloss, pack.mtl_refraction,
+        pack.mtl_refr_gloss, pack.mtl_ior, pack.mtl_absorption)))
 
 
 # ---------------------------------------------------------------------------
@@ -193,8 +205,8 @@ def _select_light(pack, u):
 def _sample_in_light(pack, lidx, surf: Surface, mtl: Mtl, new_spec_color, u):
     """GetSampleInLight (MtlBlinn.cpp:637-695): the shading direction vL.
     u: (N, >=5) uniform columns."""
-    kind, lvec, lsize = (pack.light_kind[lidx], pack.light_vec[lidx],
-                         pack.light_size[lidx])
+    kind, lvec, lsize = (lookup_rows(t, lidx) for t in (
+        pack.light_kind, pack.light_vec, pack.light_size))
     kd = mtl.diffuse.amax(1)
     ks = new_spec_color.amax(1)
     vl_c = lvec - surf.p
@@ -224,9 +236,9 @@ def _illuminate(pack, cfg: RenderConfig, lidx, p, u, mask,
     """Light::Illuminate with one shadow trace (lights.h:46-64,
     PointLight.cpp:7-18). Returns (irradiance (N,3), lanes that issued a
     real shadow query)."""
-    kind, lvec, lsize, intensity = (
-        pack.light_kind[lidx], pack.light_vec[lidx], pack.light_size[lidx],
-        pack.light_intensity[lidx])
+    kind, lvec, lsize, intensity = (lookup_rows(t, lidx) for t in (
+        pack.light_kind, pack.light_vec, pack.light_size,
+        pack.light_intensity))
     center_dir = lvec - p
     rr = dot(center_dir, center_dir)
     sdir = sample_along_normal(center_dir, lsize, u[:, 0], u[:, 1])
@@ -441,7 +453,7 @@ def _refraction_chain(pack, cfg: RenderConfig, surf: Surface, mtl: Mtl, vn,
 
     s = dict(p=surf.p, nrm=vn, d=vt, bounce=bounce, settled=~chain_active,
              case=torch.zeros(n, dtype=torch.int32, device=vn.device),
-             out_o=surf.p.clone(), out_d=vt,
+             out_o=surf.p, out_d=vt,
              segs=torch.zeros((), dtype=torch.int64, device=vn.device))
 
     def trip(s, it, ior, rgl):
@@ -507,10 +519,10 @@ def _refraction_chain(pack, cfg: RenderConfig, surf: Surface, mtl: Mtl, vn,
         while bool((~sub["settled"]).any()):
             sub = trip(sub, it, ior_k, rgl_k)
             it += 1
-        for k in ("case", "bounce"):
-            s[k][sel] = torch.where(sel_valid, sub[k], s[k][sel])
-        for k in ("out_o", "out_d"):
-            s[k][sel] = torch.where(sel_valid[:, None], sub[k], s[k][sel])
+        # Out of place (index_put), so autograd keeps every value it saved.
+        for k in ("case", "bounce", "out_o", "out_d"):
+            v = sel_valid.reshape((-1,) + (1,) * (s[k].dim() - 1))
+            s[k] = s[k].index_put((sel,), torch.where(v, sub[k], s[k][sel]))
         # Unsettled lanes that did not fit keep case NONE -> black: counted.
         dropped = unsettled.sum() - sel_valid.sum()
         segs = sub["segs"]
@@ -638,8 +650,7 @@ def _combine_level(cfg: RenderConfig, level: int, rec: LevelRecord,
                     _clamp_white(rec.refr_env)),
         _clamp_white(rec.refr_add))
     refr_k = torch.where(rec.refr_valid[:, None], refr_k, 0.0)
-    out = refr_k.new_zeros((n, 3))
-    out[rec.refr_sel] = refr_k
+    out = refr_k.new_zeros((n, 3)).index_put((rec.refr_sel,), refr_k)
     sat = (out >= 1.0).all(1)
 
     nan_purple = _vec(NAN_PURPLE, out)
@@ -663,8 +674,7 @@ def _combine_level(cfg: RenderConfig, level: int, rec: LevelRecord,
             # Parents without a slot keep their environment term.
             gi = torch.where(torch.isnan(rec.gi_env[:, 0:1]), nan_purple,
                              rec.gi_env)
-            gi = _clamp_white(gi)
-            gi[rec.gi_sel] = gi_g
+            gi = _clamp_white(gi).index_put((rec.gi_sel,), gi_g)
         out = out + torch.where(sat[:, None], 0.0, gi)
         sat = (out >= 1.0).all(1)
 
@@ -696,40 +706,79 @@ def _level_key(key, level: int):
     return rng.fold_in(rng.fold_in(key, 1), 100 + level)
 
 
+def _pixels(width: int, height: int, chunk: int, start: int, device):
+    """Pixel columns and rows of lanes start..start+chunk (clamped to the
+    last pixel)."""
+    idx = torch.clamp_max(start + torch.arange(chunk, device=device),
+                          width * height - 1)
+    return idx % width, idx // width
+
+
+def _camera_rays(cam, width: int, height: int, px, py, key):
+    """Jittered camera rays of pixels (px, py), the jitter from
+    fold_in(key, 0), and each pixel's background uv (px/width, py/height,
+    0) (pathtracer.py:1076-1090)."""
+    u = rng.uniform(rng.fold_in(key, 0), (px.shape[0], 2))
+    o, d = gen_rays(cam, width, height, px, py, u)
+    bg_uv = torch.stack([px.float() / width, py.float() / height,
+                         o.new_zeros(px.shape[0])], -1)
+    return o, d, bg_uv
+
+
 def _raygen(pack, cfg, cam, width: int, height: int, chunk: int, start: int,
             ck):
     """Camera rays of lanes start..start+chunk (clamped to the last pixel)
-    and their background colours, sampled at the pixel's uv (px/width,
-    py/height, 0) (pathtracer.py:1108-1153)."""
-    idx = torch.clamp_max(start + torch.arange(chunk, device=ck.device),
-                          width * height - 1)
-    px, py = idx % width, idx // width
-    u = rng.uniform(rng.fold_in(ck, 0), (chunk, 2))
-    o, d = gen_rays(cam, width, height, px, py, u)
-    bg_uv = torch.stack([px.float() / width, py.float() / height,
-                         o.new_zeros(chunk)], -1)
+    and their background colours, sampled at the pixel's uv
+    (pathtracer.py:1108-1153)."""
+    px, py = _pixels(width, height, chunk, start, ck.device)
+    o, d, bg_uv = _camera_rays(cam, width, height, px, py, ck)
     return o, d, sample_background(pack, bg_uv)
 
 
-def render_chunk(pack, cfg: RenderConfig, cam, width: int, height: int,
-                 chunk: int, start: int, key, sample: int, photon_map=None):
-    """Radiance (chunk,3) of one sample of one chunk, and its per-level
-    LevelRecords."""
-    ck = rng.fold_in(rng.fold_in(key, sample), start)
-    o, d, bg = _raygen(pack, cfg, cam, width, height, chunk, start, ck)
-    _, dd_x, dd_y = camera_basis(cam, width, height)
+def trace_radiance(pack, cfg: RenderConfig, o, d, bg_uv, key, dd_x, dd_y,
+                   pmap=None):
+    """Radiance of camera rays (o, d) with per-pixel background uv
+    (pathtracer.py:1024-1073): (rad (N,3), z0 (N,), ChunkStats of 0-dim
+    tensors summed over the shade tree). Level l draws from
+    fold_in(key, 100 + l)."""
+    if cfg.differentiable and pack.n_msh:
+        # Mesh hits resolve through rows gathered from the vertex, normal
+        # and uv pools, so their gradients reach pack.verts
+        # (pathtracer.py:629-636); the traces keep the compiled tables.
+        # Once here, not per level: the replaced pack's cache starts empty.
+        pack = dataclasses.replace(pack, resolve_rows=rows_from_pools(pack))
+    n = o.shape[0]
     tasks = Tasks(o=o, d=d,
-                  active=torch.ones(chunk, dtype=torch.bool, device=o.device),
-                  bounce=torch.full((chunk,), cfg.tir_bounces,
-                                    dtype=torch.int32, device=o.device))
+                  active=torch.ones(n, dtype=torch.bool, device=o.device),
+                  bounce=torch.full((n,), cfg.tir_bounces, dtype=torch.int32,
+                                    device=o.device))
     recs = []
     for level in range(cfg.max_levels):
         rec, tasks, _ = _shade_level(pack, cfg, tasks, level,
-                                     _level_key(ck, level), photon_map,
+                                     rng.fold_in(key, 100 + level), pmap,
                                      dd_x, dd_y)
         recs.append(rec)
     rad = _combine_tree(cfg, recs, tasks.active)
-    return torch.where(recs[0].hit[:, None], rad, bg), recs
+    rad = torch.where(recs[0].hit[:, None], rad, sample_background(pack, bg_uv))
+    z0 = torch.where(recs[0].hit, recs[0].z, BIG)
+    stats = ChunkStats(*(sum(getattr(r, f).to(torch.int64) for r in recs)
+                         for f in ("drop_refr", "drop_tir", "drop_gi",
+                                   "segs")))
+    return rad, z0, stats
+
+
+def _render_chunk(pack, cfg: RenderConfig, cam, width: int, height: int, px,
+                  py, key, photon_map=None):
+    """Radiance of one chunk of (pixel, sample) lanes, px/py (N,): (rad
+    (N,3), z0 (N,), ChunkStats) (pathtracer.py:1076-1098). Camera jitter
+    from fold_in(key, 0), the shade tree from fold_in(key, 1). A plain
+    function of the pack's and the camera's tensors: with
+    cfg.differentiable, torch.autograd takes its gradients
+    (parallel/sharding.py)."""
+    o, d, bg_uv = _camera_rays(cam, width, height, px, py, key)
+    _, dd_x, dd_y = camera_basis(cam, width, height)
+    return trace_radiance(pack, cfg, o, d, bg_uv, rng.fold_in(key, 1), dd_x,
+                          dd_y, photon_map)
 
 
 def check_supported_render(pack, cfg: RenderConfig,
@@ -741,8 +790,6 @@ def check_supported_render(pack, cfg: RenderConfig,
                                      "with the CLI, ROADMAP Queue 1 item 14"),
         (cfg.use_denoiser, "use_denoiser: the denoiser is ROADMAP Queue 1 "
                            "item 12"),
-        (cfg.differentiable, "differentiable: gradients are ROADMAP Queue 1 "
-                             "item 11"),
         (cfg.use_dof, "use_dof: depth of field comes with the CLI, "
                       "ROADMAP Queue 1 item 14"),
         (cfg.adaptive_spp > 0, "adaptive_spp: adaptive sampling is ROADMAP "
@@ -798,15 +845,16 @@ def render_image(pack, camera, cfg: RenderConfig = RenderConfig(),
     totals = np.zeros(4, np.int64)
 
     def run_chunk(cfg_run, start):
+        px, py = _pixels(width, height, chunk, start, dev)
         acc = torch.zeros((chunk, 3), device=dev)
         st = torch.zeros(4, dtype=torch.int64, device=dev)
         for s in range(cfg.spp):
-            rad, recs = render_chunk(pack, cfg_run, cam, width, height, chunk,
-                                     start, key, s, photon_map)
-            acc += rad
-            for r in recs:
-                st += torch.stack([r.drop_refr, r.drop_tir, r.drop_gi,
-                                   r.segs]).to(torch.int64)
+            # Chunk key fold_in(fold_in(key, sample), start).
+            ck = rng.fold_in(rng.fold_in(key, s), start)
+            rad, _, stats = _render_chunk(pack, cfg_run, cam, width, height,
+                                          px, py, ck, photon_map)
+            acc = acc + rad
+            st = st + torch.stack(list(stats))
         return acc, st.cpu().numpy()
 
     for start in range(0, total, chunk):

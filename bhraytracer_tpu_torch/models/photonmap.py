@@ -25,6 +25,14 @@ routes. The density sweeps are kernel 10 (ops/photon.py) on the card.
 Maps are built on the pack's device; `pmap_from_numpy` carries the JAX
 package's map across (its arrays as numpy), so both packages can gather
 from the same photons.
+
+Gradients: the map is a constant of a render (built without a graph, as
+the JAX package builds it outside the differentiated chunk), and the
+gather's outputs carry no gradient to its query points. Its sums are the
+map's own powers and directions over an accept set, bins and a threshold
+that are discrete in the query points, so the XLA fold's gradient with
+respect to them is exactly zero (photonmap.py:455-508); kernel 10 and its
+twin run forward on detached inputs.
 """
 
 from __future__ import annotations
@@ -250,6 +258,7 @@ def _hash_cells(cells, n_buckets: int):
     return h & (n_buckets - 1)
 
 
+@torch.no_grad()
 def build_photon_map(pack, cfg: RenderConfig, seed: int = 0,
                      caustic: bool = True,
                      batch: int = PHOTON_BATCH) -> PhotonMapPack:
@@ -364,12 +373,14 @@ def gather_irradiance(pmap: PhotonMapPack, pos, normal, k: int | None = None,
 
     The sweeps read the map's tile table. The hist and final sweeps run
     only on the lanes over k, the only ones whose results the estimate
-    reads."""
+    reads. The outputs carry no gradient to pos and normal (the module's
+    docstring): both are detached."""
     n = pos.shape[0]
     r2 = pmap.radius * pmap.radius
     r2f = float(np.float32(r2))
     inv_w0 = float(np.float32(HIST_BINS / r2))
-    pos, normal = pos.float().contiguous(), normal.float().contiguous()
+    pos = pos.detach().float().contiguous()
+    normal = normal.detach().float().contiguous()
     zero = pos.new_zeros(n)
     full_hi = pos.new_full((n,), r2f)
     tiles = pmap.tiles

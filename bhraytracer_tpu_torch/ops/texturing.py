@@ -10,12 +10,18 @@ TexturedColor (scene.h:394-422), SampleEnvironment (scene.h:414-420).
 Plain PyTorch on either device: the JAX package computes all of this
 outside its Pallas kernels too. A scene without texture maps
 (`pack.n_texmaps == 0`) does no texture work at all.
+
+The atlas is uint8, or float32 on the same 0..255 scale for gradients
+(parallel/sharding.py:trainable_params): a float atlas's texel gather
+keeps the autograd graph, so texels are differentiated through the
+bilinear weights and the filter taps.
 """
 
 from __future__ import annotations
 
 import torch
 
+from bhraytracer_tpu_torch.ops.compact import lookup_rows
 from bhraytracer_tpu_torch.ops.linalg import mat_vec
 from bhraytracer_tpu_torch.utils.halton import texture_filter_taps
 
@@ -38,9 +44,19 @@ def tile_clamp(u):
     return torch.where(u < 0.0, u + 1.0, u)
 
 
+def atlas_texels(atlas, tex_id, yy, xx):
+    """atlas[tex_id, yy, xx] as float32 (the identity on a float32 atlas,
+    whose graph is kept), gathered by one flat (tex, y, x) row index
+    through lookup_rows: its backward is a scatter-add, where advanced
+    indexing's adds each texel's duplicates in one serial loop."""
+    n_tex, th, tw = atlas.shape[:3]
+    row = (tex_id.long() * th + yy.long()) * tw + xx.long()
+    return lookup_rows(atlas.reshape(n_tex * th * tw, -1), row).float()
+
+
 def texture_eval(pack, tex_id, uvw):
-    """Single-tap texture lookup. tex_id: (...,) integer ids, uvw: (..., 3).
-    Texel indices are the float32 products w * u truncated toward zero, as
+    """Single-tap texture lookup. tex_id: integer ids that broadcast
+    against uvw's leading dimensions, uvw: (..., 3). Texel indices are the float32 products w * u truncated toward zero, as
     the reference's astype(int32)."""
     tex_id = tex_id.clamp(0, pack.tex_kind.shape[0] - 1).long()
     kind = pack.tex_kind[tex_id]
@@ -49,8 +65,9 @@ def texture_eval(pack, tex_id, uvw):
     # --- checker (Texture.cpp:127-136): (x <= .5) == (y <= .5) -> color1 ---
     left = u[..., 0] <= 0.5
     low = u[..., 1] <= 0.5
-    checker = torch.where((left == low)[..., None], pack.tex_c1[tex_id],
-                          pack.tex_c2[tex_id])
+    checker = torch.where((left == low)[..., None],
+                          lookup_rows(pack.tex_c1, tex_id),
+                          lookup_rows(pack.tex_c2, tex_id))
 
     # --- file texture, bilinear with integer-wrap parity ---
     wh = pack.tex_wh[tex_id]
@@ -68,7 +85,7 @@ def texture_eval(pack, tex_id, uvw):
     iyp = torch.where(iy + 1 >= h, iy + 1 - h, iy + 1)
 
     def fetch(yy, xx):
-        return pack.atlas[tex_id, yy.long(), xx.long()].float() * (1.0 / 255.0)
+        return atlas_texels(pack.atlas, tex_id, yy, xx) * (1.0 / 255.0)
 
     bilin = (fetch(iy, ix) * ((1 - fx) * (1 - fy))[..., None]
              + fetch(iy, ixp) * (fx * (1 - fy))[..., None]
@@ -100,8 +117,9 @@ def texmap_sample(pack, tm_id, uvw, duvw=None, taps: int = 32):
             us = (u[:, None, :]
                   + tap_xy[None, 1:, 0, None] * d0[:, None, :]
                   + tap_xy[None, 1:, 1, None] * d1[:, None, :])  # (N, S-1, 3)
-            rest = texture_eval(pack, tex[:, None].expand(us.shape[:2]),
-                                us).sum(1)
+            # One id a lane, broadcast over the taps: the texture tables'
+            # gradients sum the taps before one scatter-add a lane.
+            rest = texture_eval(pack, tex[:, None], us).sum(1)
             filtered = (center + rest) / float(taps)
         else:
             filtered = center

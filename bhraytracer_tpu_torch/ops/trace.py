@@ -26,6 +26,13 @@ forms and have no counterpart.
 (bhraytracer_tpu/ops/trace.py:793-995): the full form for shading, with
 texture coordinates and the plane's ray differentials, and the minimal
 form for the refraction chain and the photon build.
+
+Gradients (RenderConfig.differentiable) follow the JAX package's
+hit-ID-frozen estimator (bhraytracer_tpu/ops/trace.py:14-17): every trace
+runs on detached rays and tables, so no kernel or twin is differentiated,
+and `resolve_hit` recomputes the interaction differentiably from the ids.
+`rows_from_pools` rebuilds the mesh resolve rows from the vertex, normal
+and uv pools, so that vertex gradients reach `pack.verts`.
 """
 
 from __future__ import annotations
@@ -36,7 +43,7 @@ import torch
 
 from bhraytracer_tpu_torch.ops.analytic import analytic_anyhit, analytic_closest
 from bhraytracer_tpu_torch.ops.bvh import STACK_DEPTH, bvh_anyhit, bvh_closest
-from bhraytracer_tpu_torch.ops.compact import inverse_permutation
+from bhraytracer_tpu_torch.ops.compact import inverse_permutation, lookup_rows
 from bhraytracer_tpu_torch.ops.cull import cluster_tables
 from bhraytracer_tpu_torch.ops.intersect import triangle_areas
 from bhraytracer_tpu_torch.ops.linalg import (
@@ -86,13 +93,15 @@ class Surface(NamedTuple):
 
 def analytic_tables(pack):
     """(sphere rows (S,12), plane rows (P,12)) of the real instances, of any
-    number. Built once, and kept in pack.cache."""
+    number. Built once, and kept in pack.cache; traces are not
+    differentiated, so the tables carry no gradient."""
     if "analytic_tables" not in pack.cache:
-        pack.cache["analytic_tables"] = (
-            instance_table(pack.sph_itm[:pack.n_sph],
-                           pack.sph_pos[:pack.n_sph]),
-            instance_table(pack.pln_itm[:pack.n_pln],
-                           pack.pln_pos[:pack.n_pln]))
+        with torch.no_grad():
+            pack.cache["analytic_tables"] = (
+                instance_table(pack.sph_itm[:pack.n_sph],
+                               pack.sph_pos[:pack.n_sph]),
+                instance_table(pack.pln_itm[:pack.n_pln],
+                               pack.pln_pos[:pack.n_pln]))
     return pack.cache["analytic_tables"]
 
 
@@ -168,9 +177,10 @@ def decode_key(pack, t, key) -> Hit:
 def trace_closest(pack, o, d, hit_side: str = "front",
                   reorder: bool = True) -> Hit:
     """Closest hit over all instances. o, d: (N,3) world rays. reorder=False
-    takes the BVH kernel, for rays that arrive coherent (trace_route)."""
+    takes the BVH kernel, for rays that arrive coherent (trace_route). The
+    rays are detached: the hit is discrete (trace.py:464-465)."""
     sph, pln = analytic_tables(pack)
-    o, d = o.contiguous(), d.contiguous()
+    o, d = o.detach().contiguous(), d.detach().contiguous()
     route = trace_route(pack, reorder)
     if route == "analytic":
         return decode_key(pack, *analytic_closest(sph, pln, o, d, hit_side))
@@ -197,10 +207,12 @@ def trace_shadow(pack, o, d, t_max, shadow_bias: float,
     """Boolean occlusion (ShadowRayRecursive, GenLight.cpp:15-69): front
     mesh faces in (MESH_SHADOW_BIAS, t_max), analytic occluders in
     (shadow_bias, t_max). `plane_extent_bug` reproduces the reference's
-    plane frame mix-up (GenLight.cpp:37-40). Routed as trace_closest."""
+    plane frame mix-up (GenLight.cpp:37-40). Routed as trace_closest, on
+    detached rays and t_max (trace.py:497-499)."""
     sph, pln = analytic_tables(pack)
-    o, d = o.contiguous(), d.contiguous()
-    t_max = torch.as_tensor(t_max, dtype=torch.float32, device=o.device)
+    o, d = o.detach().contiguous(), d.detach().contiguous()
+    t_max = torch.as_tensor(t_max, dtype=torch.float32,
+                            device=o.device).detach()
     t_max = t_max.expand(o.shape[0]).contiguous()
     kw = dict(ana_bias=shadow_bias, plane_world_bug=plane_extent_bug)
     route = trace_route(pack, reorder)
@@ -219,12 +231,26 @@ def trace_shadow(pack, o, d, t_max, shadow_bias: float,
                          **kw)
 
 
+def rows_from_pools(pack) -> torch.Tensor:
+    """The packed (F,32) resolve rows rebuilt from the vertex, normal and
+    uv pools (bhraytracer_tpu/ops/trace.py:775-790): the same values as
+    `pack.resolve_rows`, but gathered from `pack.verts`, `pack.normals`
+    and `pack.uvs`, so that a differentiable render that swaps them in
+    carries gradients back to those pools."""
+    f = pack.face_v.shape[0]
+    vt3 = pack.verts[pack.face_v.long()].reshape(f, 9)
+    nt3 = pack.normals[pack.face_vn.long()].reshape(f, 9)
+    ut3 = pack.uvs[pack.face_vt.long()].reshape(f, 9)
+    mtl = pack.face_mtl.float()[:, None]
+    return torch.cat([vt3, nt3, ut3, mtl, vt3.new_zeros((f, 4))], 1)
+
+
 def resolve_hit(pack, o, d, hit: Hit, dd_x=None, dd_y=None,
                 minimal: bool = False) -> Surface:
     """Recompute the surface interaction from discrete hit ids
     (bhraytracer_tpu/ops/trace.py:793-995, fast_rows=True: the mesh branch
     reads the packed (F,32) `resolve_rows` table, copies of the vertex,
-    normal and uv pools).
+    normal and uv pools; a differentiable render swaps in rows_from_pools).
 
     dd_x/dd_y are the camera pixel deltas (3,), which the plane's ray
     differentials use for secondary rays too (Plane.cpp:51-70, via the
@@ -253,7 +279,8 @@ def resolve_hit(pack, o, d, hit: Hit, dd_x=None, dd_y=None,
         if minimal:
             uv_s = z3
         else:
-            dn = normalize(p_s)
+            # The sphere's uv is not differentiated (trace.py:842).
+            dn = normalize(p_s.detach())
             uv_s = torch.stack([
                 0.5 + torch.atan2(dn[:, 1], dn[:, 0]) / (2.0 * torch.pi),
                 0.5 - torch.asin(torch.clamp(dn[:, 2], -1.0, 1.0)) / torch.pi,
@@ -303,7 +330,8 @@ def resolve_hit(pack, o, d, hit: Hit, dd_x=None, dd_y=None,
         m_itm = pack.msh_itm[mi]
         ol = mat_vec(m_itm, o - pack.msh_pos[mi])
         dl = mat_vec(m_itm, d)
-        rows = pack.resolve_rows[hit.face.clamp(0, pack.face_v.shape[0] - 1).long()]
+        rows = lookup_rows(pack.resolve_rows,
+                           hit.face.clamp(0, pack.face_v.shape[0] - 1))
         v0, v1, v2 = rows[:, 0:3], rows[:, 3:6], rows[:, 6:9]
         vn = cross(v1 - v0, v2 - v0)
         tdiv = dot(vn, dl)

@@ -15,6 +15,13 @@ uv-mapped 4,608-face banner textured with china.png, and a textured
 background and environment (the port's stand-in for the reference's
 proj10, whose XML the repository does not hold).
 
+`gradient_scene` and `gradient_mesh_scene` are the JAX package's two
+finite-difference setups (tests/test_gradients.py:22-72: a sphere over a
+ground plane; tests/test_gradients_mesh.py:42-109: a camera-facing
+textured quad mesh over a checker plane), at 24x18; with
+`textured=True` the sphere's diffuse colour is textured with the quad's
+4x4 image, whose uv is the sphere's.
+
 `crowd_scene` and `grid_scene` grow tiny_scene past limits that the first
 slices of the port refused and the JAX package renders: more instances,
 materials or lights than the fused shade kernel's tables hold, more than
@@ -135,6 +142,112 @@ def textured_scene(device=None):
     1, the BVH kernels at level 0)."""
     return load_scene(TEXTURED_XML, resource_root=ASSETS, lenient=False,
                       device=device)
+
+
+def _gradient_camera(desc):
+    cam = desc.Camera()
+    cam.pos = np.array([0.0, -8.0, 3.0])
+    d = np.array([0.0, 8.0, -2.0])
+    cam.dir = d / np.linalg.norm(d)
+    x = np.cross(cam.dir, np.array([0.0, 0.0, 1.0]))
+    up = np.cross(x, cam.dir)
+    cam.up = up / np.linalg.norm(up)
+    cam.width, cam.height = 24, 18
+    return cam
+
+
+def _gradient_ground(desc, sd, material: int):
+    t = desc.Transform()
+    t.scale(20.0, 20.0, 20.0)
+    sd.nodes.append(desc.NodeDesc(kind="plane", name="g", transform=t,
+                                  material=material))
+    sd.lights.append(desc.LightDesc(kind="point", intensity=np.full(3, 40.0),
+                                    position=np.array([4.0, -4.0, 8.0])))
+    sd.background = desc.TexturedColorDesc(color=np.array([0.1, 0.1, 0.1]))
+    sd.environment = desc.TexturedColorDesc(color=np.array([0.3, 0.3, 0.3]))
+
+
+def _gradient_image():
+    """The 4x4 file texture of the mesh setup: mid-gray with structure, so
+    the bilinear weights vary."""
+    return (np.arange(48).reshape(4, 4, 3) * 4 + 80).astype(np.uint8)
+
+
+def gradient_scene_desc(desc=D, textured: bool = False):
+    """tests/test_gradients.py's setup: a glossy red sphere over a white
+    ground plane, one point light; the camera at 24x18 (sd.camera)."""
+    sd = desc.SceneDesc()
+    red = desc.MaterialDesc(name="red")
+    red.diffuse = desc.TexturedColorDesc(color=np.array([0.7, 0.3, 0.2]))
+    red.specular = desc.TexturedColorDesc(color=np.array([0.4, 0.4, 0.4]))
+    red.glossiness = 20.0
+    if textured:
+        sd.textures.append(desc.TextureDesc(kind="file", name="img",
+                                            image=_gradient_image()))
+        sd.texmaps.append(desc.TextureMapDesc(texture=0))
+        red.diffuse.texmap = 0
+    white = desc.MaterialDesc(name="white")
+    white.diffuse = desc.TexturedColorDesc(color=np.array([0.8, 0.8, 0.8]))
+    white.specular = desc.TexturedColorDesc(color=np.zeros(3))
+    sd.materials += [red, white]
+    t = desc.Transform()
+    t.scale(1.5, 1.5, 1.5)
+    t.translate(np.array([0.0, 0.0, 1.5]))
+    sd.nodes.append(desc.NodeDesc(kind="sphere", name="s", transform=t,
+                                  material=0))
+    _gradient_ground(desc, sd, 1)
+    sd.camera = _gradient_camera(desc)
+    return sd
+
+
+def gradient_mesh_scene_desc(desc=D):
+    """tests/test_gradients_mesh.py's setup: a camera-facing quad mesh
+    (two faces, uv-mapped, textured with a 4x4 image) over a checker
+    plane, one point light; the camera at 24x18 (sd.camera)."""
+    sd = desc.SceneDesc()
+    sd.textures.append(desc.TextureDesc(kind="file", name="img",
+                                        image=_gradient_image()))
+    sd.textures.append(desc.TextureDesc(
+        kind="checker", name="chk",
+        color1=np.array([0.2, 0.2, 0.2]), color2=np.array([0.8, 0.8, 0.8])))
+    sd.texmaps.append(desc.TextureMapDesc(texture=0))
+    sd.texmaps.append(desc.TextureMapDesc(texture=1))
+    quad_m = desc.MaterialDesc(name="quad")
+    quad_m.diffuse = desc.TexturedColorDesc(color=np.array([1.0, 1.0, 1.0]),
+                                            texmap=0)
+    quad_m.specular = desc.TexturedColorDesc(color=np.array([0.2, 0.2, 0.2]))
+    quad_m.glossiness = 20.0
+    floor_m = desc.MaterialDesc(name="floor")
+    floor_m.diffuse = desc.TexturedColorDesc(color=np.array([1.0, 1.0, 1.0]),
+                                             texmap=1)
+    floor_m.specular = desc.TexturedColorDesc(color=np.zeros(3))
+    sd.materials += [quad_m, floor_m]
+    verts = np.array([[-1.0, 2.0, 0.5], [1.0, 2.0, 0.5],
+                      [1.0, 2.0, 2.5], [-1.0, 2.0, 2.5]], np.float32)
+    faces = np.array([[0, 1, 2], [0, 2, 3]], np.int32)
+    normals = np.tile(np.array([[0.0, -1.0, 0.0]], np.float32), (4, 1))
+    uvs = np.array([[0.1, 0.1, 0], [0.9, 0.1, 0],
+                    [0.9, 0.9, 0], [0.1, 0.9, 0]], np.float32)
+    sd.meshes.append(desc.MeshDesc(
+        name="quad", verts=verts, faces=faces, normals=normals,
+        face_normals=faces.copy(), uvs=uvs, face_uvs=faces.copy(),
+        face_mtl=np.full(2, -1, np.int32)))
+    sd.nodes.append(desc.NodeDesc(kind="mesh", name="quad",
+                                  transform=desc.Transform(), material=0,
+                                  mesh=0))
+    _gradient_ground(desc, sd, 1)
+    sd.camera = _gradient_camera(desc)
+    return sd
+
+
+def gradient_scene(device=None, textured: bool = False):
+    sd = gradient_scene_desc(textured=textured)
+    return compile_scene(sd, device=device), sd.camera
+
+
+def gradient_mesh_scene(device=None):
+    sd = gradient_mesh_scene_desc()
+    return compile_scene(sd, device=device), sd.camera
 
 
 # name -> (extra spheres, extra planes, extra materials, lights): tiny

@@ -38,8 +38,17 @@ maps, a textured background and environment) with `_textured_leg`'s config
 default 32 taps; checks the images, a 64x48 render of the small scenes and
 of the textured scene (the photon render with one map carried to both) and
 a 32x24 render of the big-mesh scene and of the textured scene with a
-photon map against the CPU twins; and prints the card, the numbers and one
-JSON line per result. The last line is the device line. Any failed
+photon map against the CPU twins; runs the inverse-rendering path (the
+bench scene at 1024x1024 through one differentiable _render_chunk: a
+target, one value_and_grad over the trainable parameters with its
+forward and backward times, launches, syncs and peak memory, then 5 Adam
+steps that must lower the loss and the diffuse error; kernels 1, 2, 4
+and 5 held against their twins on every trace call of its forward),
+times the gradient of the textured scene at 1024x1024 with 32 filter
+taps, and holds the card's gradients and radiance to the CPU's on the two
+finite-difference setups of the JAX tests and on the photon scene; and
+prints the card, the numbers and
+one JSON line per result. The last line is the device line. Any failed
 check raises and the script exits non-zero; so does a run without a CUDA
 card or outside a checkout.
 
@@ -61,6 +70,19 @@ JSON line per frame; a photon frame builds its map first and prints the
 build's time beside the frame's. For bench and bigmesh these two modes
 read only `<name>_scene` and `render_image`, so a copy of this script
 placed in an older checkout times or profiles that checkout.
+
+    python3 chip_smoke.py --inverse
+
+builds the kernels and runs only the inverse-rendering path (1024x1024 on
+the bench scene: a value_and_grad with its forward and backward times,
+launches, syncs and peak memory, then 5 Adam steps, and the checks of
+its trace calls), the textured gradient and the card-vs-CPU gradient
+comparisons of the default run.
+
+    python3 chip_smoke.py --textured-gradient
+
+builds the kernels and times only the textured scene's 1024x1024
+gradient (forward, backward, peak memory).
 
     python3 chip_smoke.py --save-inputs PATH
     python3 chip_smoke.py --timing PATH
@@ -118,6 +140,22 @@ PHOTON = dict(spp=1, gi_bounces=3, extra_refr_levels=2, tir_bounces=16,
 TEXTURED = dict(spp=4, gi_bounces=0, extra_refr_levels=0, tir_bounces=16,
                 chunk_rays=480000, texture_sample_count=1)
 TEXTURED32 = dict(HEADLINE, texture_sample_count=32)
+# Inverse rendering: BASELINE.json's 1024x1024 target on the bench scene,
+# with tests/test_gradients.py:61-64's config (examples/inverse_render.py:
+# 51-54); all 1,048,576 lanes in one _render_chunk, as train_step_sharded
+# takes them; 5 Adam steps at examples/inverse_render.py's rate.
+INVERSE = dict(spp=1, gi_bounces=1, extra_refr_levels=0, tir_bounces=2,
+               texture_sample_count=1, differentiable=True)
+INVERSE_SIZE, INVERSE_STEPS, INVERSE_LR = 1024, 5, 5e-2
+# Gradients on the card against the CPU: |g_gpu - g_cpu| <= GRAD_RTOL *
+# max|g_cpu| + GRAD_ATOL per parameter. The hit ids are equal (kernel ==
+# twin), so the two differ by the order of float sums (the backward's
+# scatter-adds are atomic on the card) and by the ulps of CUDA's and the
+# CPU's transcendental functions: the tolerance of the port against the
+# JAX package (tests/test_torch_gradients.py). GRAD_ATOL stays far below
+# the smallest nonzero gradient (the atlas's, 5.6e-6 at most), so the
+# relative term decides; measured (H100): 3.0e-5 of max|g| at worst.
+GRAD_RTOL, GRAD_ATOL = 1e-3, 1e-9
 # name -> (scene function of bhraytracer_tpu_torch.scenes, config)
 PATHS = {"bench": ("bench_scene", HEADLINE),
          "bigmesh": ("bigmesh_scene", BIGMESH),
@@ -1087,16 +1125,14 @@ def compare_analytic(tiny, cam, dev, pmap):
     }
 
 
-def record_frame_calls(pack, cam, cfg_kw=HEADLINE):
-    """The trace calls of one frame at 800x600 (seed 1, as the main path's
-    timed frame) with config `cfg_kw`, as the render makes them: the flat
-    closest-hit calls (kernel 1), (o, d, t_init, side) of each (side "both"
-    for the refraction chain's trips, "front" for the levels >= 1), the
-    flat shadow calls (kernel 2, the levels >= 1), (o, d, t_max, t_min,
+def record_trace_calls(run):
+    """The trace calls that `run()` makes, as the render makes them: the
+    flat closest-hit calls (kernel 1), (o, d, t_init, side) of each (side
+    "both" for the refraction chain's trips, "front" for the levels >= 1),
+    the flat shadow calls (kernel 2, the levels >= 1), (o, d, t_max, t_min,
     ana_bias, plane_world_bug) of each, and the BVH calls (kernels 4 and 5,
     level 0) in the same two forms under "closest" and "anyhit"; all
     cloned."""
-    import bhraytracer_tpu_torch as B
     from bhraytracer_tpu_torch.ops import trace as T
 
     calls, shadows = [], []
@@ -1126,12 +1162,57 @@ def record_frame_calls(pack, cam, cfg_kw=HEADLINE):
     T.bvh_closest = closest_rec(saved[2], bvh["closest"], 3)
     T.bvh_anyhit = anyhit_rec(saved[3], bvh["anyhit"], 3)
     try:
-        cam.width, cam.height = 800, 600
-        B.render_image(pack, cam, render_config(cfg_kw), seed=1)
+        run()
     finally:
         (T.stream_closest, T.stream_anyhit, T.bvh_closest,
          T.bvh_anyhit) = saved
     return calls, shadows, bvh
+
+
+def record_frame_calls(pack, cam, cfg_kw=HEADLINE):
+    """record_trace_calls of one frame at 800x600 (seed 1, as the main
+    path's timed frame) with config `cfg_kw`."""
+    import bhraytracer_tpu_torch as B
+
+    def run():
+        cam.width, cam.height = 800, 600
+        B.render_image(pack, cam, render_config(cfg_kw), seed=1)
+
+    return record_trace_calls(run)
+
+
+def frame_call_checks(per_kernel, pack, dev, rec, what):
+    """Kernels 1 and 2 (compare_frame_calls) and 4 and 5
+    (compare_bvh_calls) on every call of the frame `what` recorded by
+    record_trace_calls (`rec`): each kernel's entry in per_kernel gains the
+    lanes compared and, under "<what>_calls", the frame's results."""
+    calls, shadows, bvh_calls = rec
+    flat, n_flat, n_shadow = compare_frame_calls(pack, dev, calls, shadows,
+                                                 what)
+    res = {"bhrt_stream_closest": (n_flat, dict(chain=flat["chain"],
+                                                levels=flat["levels"])),
+           "bhrt_stream_anyhit": (n_shadow, flat["shadow"])}
+    for k, v in compare_bvh_calls(pack, dev, bvh_calls, what).items():
+        res[k] = (v["lanes_compared"], v)
+        kb = per_kernel[k]
+        kb.update(max_abs_err=max(kb["max_abs_err"], v["max_abs_err"]),
+                  walk_lanes=kb["walk_lanes"] + v["walk_lanes"])
+    for k, (lanes, v) in res.items():
+        per_kernel[k]["lanes_compared"] += lanes
+        per_kernel[k][f"{what}_calls"] = v
+
+
+def print_frame_calls(per_kernel, what, note):
+    """The results of frame_call_checks on the frame `what`."""
+    print(f"flat kernels on a {what} frame's calls (closest key for key, "
+          f"any-hit bit for bit; {note}):",
+          json.dumps({"closest": per_kernel["bhrt_stream_closest"][
+              f"{what}_calls"], "anyhit": per_kernel["bhrt_stream_anyhit"][
+              f"{what}_calls"]}))
+    print(f"BVH kernels on a {what} frame's level-0 calls (every lane "
+          "against the brute-force twin; results and counts against "
+          "bvh_walk_ref on subsets):",
+          json.dumps({k: per_kernel[k][f"{what}_calls"] for k in BVH}))
 
 
 def exact_lanes(t1, k1, t0, k0) -> int:
@@ -2284,6 +2365,350 @@ def frame_inputs(name, dev):
     return pack, cam, cfg, kw
 
 
+def profile_counts(fn, top: int = 6):
+    """(fn(), {launches, syncs, device_busy_ms, top_kernels}) of one call
+    under torch.profiler: cudaLaunchKernel / cuLaunchKernel events,
+    synchronisations (less the one that ends the call), the device time of
+    the events that ran on the card (write_profile's count), and the `top`
+    kernels by device time as [name, calls, ms]."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    ka = prof.key_averages()
+    col = ("self_device_time_total"
+           if hasattr(ka[0], "self_device_time_total")
+           else "self_cuda_time_total")
+    kern = sorted((e for e in ka if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)),
+                  key=lambda e: -getattr(e, col))
+    return out, dict(
+        launches=sum(e.count for e in ka if e.key in (
+            "cudaLaunchKernel", "cuLaunchKernel")),
+        syncs=sum(e.count for e in ka if "Synchronize" in e.key) - 1,
+        device_busy_ms=sum(getattr(e, col) for e in kern) / 1e3,
+        top_kernels=[[e.key[:120], e.count, getattr(e, col) / 1e3]
+                     for e in kern[:top]])
+
+
+def mean_radiance_grads(pack, cam, cfg_kw, width, height, seed, wrt=None,
+                        pmap=None):
+    """(radiance, stats, {key: gradient of the mean radiance}, {forward_ms,
+    backward_ms}) of one _render_chunk over the image's lanes, for the
+    trainable_params named in wrt (all, with geometry and textures, by
+    default)."""
+    import torch
+
+    def clock():
+        if pack.device.type == "cuda":
+            torch.cuda.synchronize()
+        return time.perf_counter()
+
+    from bhraytracer_tpu_torch.models.pathtracer import _pixels, _render_chunk
+    from bhraytracer_tpu_torch.ops import rng
+    from bhraytracer_tpu_torch.ops.camera import from_scene_camera
+    from bhraytracer_tpu_torch.parallel.sharding import (
+        _apply_params,
+        trainable_params,
+    )
+
+    dev = pack.device
+    n = width * height
+    cfg = render_config(dict(cfg_kw, chunk_rays=n))
+    cam_p = from_scene_camera(cam, dev)
+    params = trainable_params(pack, cam_p, include_geometry=True,
+                              include_textures=True)
+    wrt = list(params) if wrt is None else list(wrt)
+    leaves = {k: v.detach().requires_grad_(k in wrt)
+              for k, v in params.items()}
+    pk, cm = _apply_params(pack, cam_p, leaves)
+    px, py = _pixels(width, height, n, 0, dev)
+    t0 = clock()
+    rad, _, st = _render_chunk(pk, cfg, cm, width, height, px, py,
+                               rng.prng_key(seed, dev), pmap)
+    t1 = clock()
+    gs = torch.autograd.grad(rad.mean(), [leaves[k] for k in wrt],
+                             allow_unused=True)
+    t2 = clock()
+    grads = {k: (torch.zeros_like(leaves[k]) if g is None else g).cpu()
+             for k, g in zip(wrt, gs)}
+    return (rad.detach().cpu(), [int(x) for x in st], grads,
+            dict(forward_ms=(t1 - t0) * 1e3, backward_ms=(t2 - t1) * 1e3))
+
+
+def compare_radiance(what, r_gpu, r_cpu) -> dict:
+    """The card's radiance against the CPU's as small_render_vs_cpu holds
+    images: at least 99% of lanes within 1e-4, mean abs below 1e-3."""
+    err = (r_gpu - r_cpu).abs()
+    within = float((err.amax(-1) <= 1e-4).float().mean())
+    mean_abs = float(err.mean())
+    check(within >= 0.99 and mean_abs < 1e-3,
+          f"{what}: card vs CPU radiance {within:.4f} within 1e-4, mean abs "
+          f"{mean_abs:.2e}")
+    return dict(radiance_max_abs_err=float(err.max()),
+                radiance_within_1e4=within, radiance_mean_abs=mean_abs)
+
+
+def compare_grads(what, g_gpu, g_cpu) -> dict:
+    """Each parameter's largest difference over its largest CPU gradient;
+    fails beyond GRAD_RTOL * max|g_cpu| + GRAD_ATOL or on a non-finite
+    card gradient."""
+    import torch
+
+    out = {}
+    for k, c in g_cpu.items():
+        g = g_gpu[k]
+        check(bool(torch.isfinite(g).all()), f"{what}: {k} gradient not "
+              "finite on the card")
+        err = float((g - c).abs().max()) if c.numel() else 0.0
+        top = float(c.abs().max()) if c.numel() else 0.0
+        check(err <= GRAD_RTOL * top + GRAD_ATOL,
+              f"{what}: {k} gradient off by {err:.3g} (max {top:.3g})")
+        out[k] = dict(max_abs=top, err=err, err_over_max=err / max(top, 1e-30))
+    return out
+
+
+def gradients_vs_cpu(dev, pmap):
+    """Gradients of the mean radiance on the card (kernels) against the CPU
+    (twins): (a) every trainable parameter of tests/test_gradients.py's and
+    tests/test_gradients_mesh.py's setups at 24x18, built through the port
+    (scenes.gradient_scene, gradient_mesh_scene); (b) mtl_diffuse and
+    light_intensity on tiny_scene at 128x96 gathering from the photon map
+    built for the photon path (seed 1, as PHOTON), carried to the CPU, with
+    the launches of kernels 8, 9 and 10 in the card's run."""
+    import torch
+
+    from bhraytracer_tpu_torch import scenes
+    from bhraytracer_tpu_torch.ops import kernels
+
+    res = {}
+    for name, fn in (("fd_sphere", scenes.gradient_scene),
+                     ("fd_mesh", scenes.gradient_mesh_scene)):
+        out = []
+        for device in (dev, "cpu"):
+            pack, cam = fn(device)
+            out.append(mean_radiance_grads(pack, cam, INVERSE, cam.width,
+                                           cam.height, 7))
+        (rg, sg, gg, _), (rc, sc, gc, _) = out
+        check(sg == sc, f"{name}: stats {sg} (GPU) vs {sc} (CPU)")
+        res[name] = dict(size="24x18", **compare_radiance(name, rg, rc),
+                         grads=compare_grads(name, gg, gc))
+    wrt = ("mtl_diffuse", "light_intensity")
+    cfg_kw = dict(INVERSE, use_photon_map=True,
+                  photon_count=PHOTON["photon_count"])
+    out = []
+    for device in (dev, "cpu"):
+        pack, cam = scenes.tiny_scene(device)
+        kernels.LAUNCHES.clear()
+        out.append(mean_radiance_grads(pack, cam, cfg_kw, 128, 96, 0, wrt,
+                                       pmap.to(device)))
+        if device == dev:
+            torch.cuda.synchronize()
+            launched = dict(kernels.LAUNCHES)
+    (rg, sg, gg, _), (rc, sc, gc, _) = out
+    for k in ANALYTIC + ("bhrt_photon_sweep",):
+        check(launched.get(k, 0) > 0, f"{k} not launched by the photon "
+              "gradient run")
+    check(sg == sc, f"photon gradients: stats {sg} (GPU) vs {sc} (CPU)")
+    res["photon"] = dict(size="128x96", photons=int(pmap.pos.shape[0]),
+                         launches=launched,
+                         **compare_radiance("photon", rg, rc),
+                         grads=compare_grads("photon", gg, gc))
+    return res
+
+
+def textured_gradient(dev, taps: int = 32):
+    """The gradient of the mean radiance of the textured scene at
+    INVERSE_SIZE^2 in one _render_chunk, INVERSE's config with `taps`
+    filter taps, over every trainable parameter with geometry and textures
+    (the atlas a float32 copy): timed forward and backward after one warm
+    pass under the profiler (profile_counts of forward and backward
+    together), with the device memory's peak; every gradient finite, and
+    the texture tables' and the atlas's nonzero."""
+    import torch
+
+    from bhraytracer_tpu_torch.scenes import textured_scene
+
+    pack, cam = textured_scene(dev)
+    cfg_kw = dict(INVERSE, texture_sample_count=taps)
+    w = h = INVERSE_SIZE
+    _, prof = profile_counts(
+        lambda: mean_radiance_grads(pack, cam, cfg_kw, w, h, 0), top=8)
+    torch.cuda.reset_peak_memory_stats()
+    _, st, grads, times = mean_radiance_grads(pack, cam, cfg_kw, w, h, 0)
+    peak = torch.cuda.max_memory_allocated()
+    for k, g in grads.items():
+        check(bool(torch.isfinite(g).all()), f"textured gradient: {k} not "
+              "finite")
+    for k in ("tex_c1", "tex_c2", "atlas"):
+        check(float(grads[k].abs().max()) > 0,
+              f"textured gradient: {k} gradient is 0")
+    return dict(size=f"{w}x{h}", taps=taps, **times, profiled=prof,
+                peak_memory_gib=peak / 2 ** 30, segments=st[3],
+                drops=st[:3], grad_max_abs={k: float(g.abs().max())
+                                            for k, g in grads.items()})
+
+
+def inverse_main_path(dev):
+    """The inverse-rendering path at INVERSE_SIZE^2 on the bench scene:
+    the target from the true tables; mtl_diffuse perturbed (seed 0,
+    +-0.35, clipped to [0.02, 0.98]); one value_and_grad over
+    trainable_params(include_geometry=True) under the profiler (the host's
+    launches and syncs), then the same timed, forward and backward, with
+    the launch counters from 0 just before it and read just after, and the
+    device memory's peak over it; then INVERSE_STEPS Adam steps on
+    mtl_diffuse, each timed. Returns the results, the launches and (pack,
+    the trace calls of one more forward, record_trace_calls)."""
+    import numpy as np
+    import torch
+
+    from bhraytracer_tpu_torch.models.pathtracer import _pixels, _render_chunk
+    from bhraytracer_tpu_torch.ops import kernels, rng
+    from bhraytracer_tpu_torch.ops.camera import from_scene_camera
+    from bhraytracer_tpu_torch.parallel.sharding import (
+        _apply_params,
+        loss_and_grads,
+        trainable_params,
+    )
+    from bhraytracer_tpu_torch.scenes import bench_scene
+
+    w = h = INVERSE_SIZE
+    n = w * h
+    pack, cam = bench_scene(dev)
+    cfg = render_config(dict(INVERSE, chunk_rays=n))
+    cam_p = from_scene_camera(cam, dev)
+    px, py = _pixels(w, h, n, 0, dev)
+    key = rng.prng_key(0, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        target, _, st = _render_chunk(pack, cfg, cam_p, w, h, px, py, key)
+    torch.cuda.synchronize()
+    t_target = time.perf_counter() - t0
+    check(bool(torch.isfinite(target).all()), "inverse: target not finite")
+    check(int(st.drop_refr) == int(st.drop_tir) == int(st.drop_gi) == 0,
+          f"inverse: target dropped lanes {[int(x) for x in st]}")
+    true_d = pack.mtl_diffuse.cpu().numpy()
+    g = np.random.default_rng(0)
+    d0 = np.clip(true_d + g.uniform(-0.35, 0.35, true_d.shape), 0.02,
+                 0.98).astype(np.float32)
+    params = dict(trainable_params(pack, cam_p, include_geometry=True),
+                  mtl_diffuse=torch.from_numpy(d0).to(dev))
+
+    def forward():
+        leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+        pk, cm = _apply_params(pack, cam_p, leaves)
+        rad, _, stats = _render_chunk(pk, cfg, cm, w, h, px, py, key)
+        return leaves, torch.mean((rad - target) ** 2), stats
+
+    def backward(leaves, loss):
+        gs = torch.autograd.grad(loss, list(leaves.values()),
+                                 allow_unused=True)
+        return {k: torch.zeros_like(v) if g is None else g
+                for (k, v), g in zip(leaves.items(), gs)}
+
+    # Warm (the first call of a process loads the CUDA kernels it uses),
+    # counting the host's launches and syncs and the top device kernels.
+    (leaves, loss, _), fwd_prof = profile_counts(forward)
+    _, bwd_prof = profile_counts(lambda: backward(leaves, loss))
+    del leaves, loss
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    leaves, loss, stats = forward()
+    torch.cuda.synchronize()
+    t_fwd = time.perf_counter() - t0
+    launches_fwd = dict(kernels.LAUNCHES)
+    grads = backward(leaves, loss)
+    torch.cuda.synchronize()
+    t_bwd = time.perf_counter() - t0 - t_fwd
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    loss0 = float(loss.detach())
+    del leaves, loss
+    for k, v in grads.items():
+        check(bool(torch.isfinite(v).all()), f"inverse: {k} gradient not "
+              "finite")
+    for k in ("mtl_diffuse", "verts"):
+        check(float(grads[k].abs().max()) > 0, f"inverse: {k} gradient is 0")
+    drops = [int(stats.drop_refr), int(stats.drop_tir), int(stats.drop_gi)]
+    check(drops == [0, 0, 0], f"inverse: dropped lanes {drops}")
+    check(launches == launches_fwd, "inverse: the backward launched a kernel")
+    check(launches.get("bhrt_bvh_closest", 0) == 1
+          and launches.get("bhrt_bvh_anyhit", 0) == 1,
+          "inverse: BVH launches other than level 0's one pair")
+    check(launches.get("bhrt_stream_anyhit", 0) == 1
+          and launches.get("bhrt_stream_closest", 0) >= 1,
+          "inverse: flat kernels other than level 1's shadow trace and the "
+          "closest traces of level 1 and the chains")
+    for k in ("bhrt_shade_setup", "bhrt_photon_sweep") + HBM + ANALYTIC:
+        check(launches.get(k, 0) == 0, f"inverse: {k} launched")
+
+    diffuse = params["mtl_diffuse"].clone().requires_grad_()
+    opt = torch.optim.Adam([diffuse], lr=INVERSE_LR)
+    losses, step_s = [], []
+    for _ in range(INVERSE_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lv, gr = loss_and_grads(dict(params, mtl_diffuse=diffuse), pack, cfg,
+                                cam_p, w, h, px, py, target, key,
+                                wrt=("mtl_diffuse",))
+        opt.zero_grad()
+        diffuse.grad = gr["mtl_diffuse"]
+        opt.step()
+        with torch.no_grad():
+            diffuse.clamp_(0.0, 1.0)
+        losses.append(float(lv))
+        step_s.append(time.perf_counter() - t0)
+    err0 = float(np.abs(d0 - true_d).mean())
+    err1 = float(np.abs(diffuse.detach().cpu().numpy() - true_d).mean())
+    check(losses[-1] < losses[0], f"inverse: loss {losses[0]:.6g} -> "
+          f"{losses[-1]:.6g} over {INVERSE_STEPS} Adam steps")
+    check(err1 < err0, f"inverse: diffuse L1 error {err0:.4f} -> {err1:.4f}")
+    # The trace calls of the timed forward (the same function on the same
+    # inputs), recorded last so that their copies weigh on no time or peak.
+    rec = record_trace_calls(forward)
+    res = dict(size=f"{w}x{h}", lanes=n, segments=int(stats.segments),
+               target_ms=t_target * 1e3, forward_ms=t_fwd * 1e3,
+               backward_ms=t_bwd * 1e3, value_and_grad_loss=loss0,
+               forward_profiled=fwd_prof, backward_profiled=bwd_prof,
+               peak_memory_gib=peak / 2 ** 30, drops=drops,
+               adam_losses=losses, adam_step_s=step_s,
+               diffuse_l1_err=[err0, err1],
+               grad_max_abs={k: float(v.abs().max())
+                             for k, v in grads.items()})
+    return res, launches, (pack, rec)
+
+
+def inverse_alone(dev, card):
+    """--inverse: the inverse path with the checks of its trace calls, the
+    textured gradient and the card-vs-CPU gradients alone (the photon map
+    built as the default run builds it)."""
+    import bhraytracer_tpu_torch as B
+    from bhraytracer_tpu_torch.models.photonmap import build_photon_map
+    from bhraytracer_tpu_torch.scenes import tiny_scene
+
+    res, launches, (pack, rec) = inverse_main_path(dev)
+    print(json.dumps({"inverse": res, "launches": launches, "card": card}))
+    per_kernel = {k: dict(max_abs_err=0.0, lanes_compared=0, walk_lanes=0)
+                  for k in FLAT + BVH}
+    frame_call_checks(per_kernel, pack, dev, rec, "inverse")
+    del rec
+    print_frame_calls(per_kernel, "inverse",
+                      f"{INVERSE_SIZE}x{INVERSE_SIZE} INVERSE forward")
+    print(json.dumps({"textured_gradient": textured_gradient(dev),
+                      "card": card}))
+    pmap = build_photon_map(tiny_scene(dev)[0], B.RenderConfig(**PHOTON),
+                            seed=1)
+    print(json.dumps({"gradients_vs_cpu": gradients_vs_cpu(dev, pmap),
+                      "card": card}))
+
+
 TEXTURE_RANGE = "bhrt_texture"
 
 
@@ -2499,6 +2924,13 @@ def main() -> int:
     if "--timing" in args:
         time_inputs(dev, card, args[args.index("--timing") + 1])
         return 0
+    if "--inverse" in args:
+        inverse_alone(dev, card)
+        return 0
+    if "--textured-gradient" in args:
+        print(json.dumps({"textured_gradient": textured_gradient(dev),
+                          "card": card}))
+        return 0
 
     import bhraytracer_tpu_torch as B
     from bhraytracer_tpu_torch.models.photonmap import build_photon_map
@@ -2535,23 +2967,9 @@ def main() -> int:
     # Kernels 1, 2, 4 and 5 on every call of a textured32 frame: the
     # textured scene has two mesh instances, each with its own transform.
     tex_pack, tex_cam = textured_scene()
-    calls, shadows, bvh_calls = record_frame_calls(tex_pack, tex_cam,
-                                                   TEXTURED32)
-    tflat, n_flat, n_shadow = compare_frame_calls(tex_pack, dev, calls,
-                                                  shadows, "textured32")
-    k1.update(lanes_compared=k1["lanes_compared"] + n_flat,
-              textured32_calls=dict(chain=tflat["chain"],
-                                    levels=tflat["levels"]))
-    k2.update(lanes_compared=k2["lanes_compared"] + n_shadow,
-              textured32_calls=tflat["shadow"])
-    for k, v in compare_bvh_calls(tex_pack, dev, bvh_calls,
-                                  "textured32").items():
-        kb = per_kernel[k]
-        kb.update(max_abs_err=max(kb["max_abs_err"], v["max_abs_err"]),
-                  lanes_compared=kb["lanes_compared"] + v["lanes_compared"],
-                  walk_lanes=kb["walk_lanes"] + v["walk_lanes"],
-                  textured32_calls=v)
-    del calls, shadows, bvh_calls
+    frame_call_checks(per_kernel, tex_pack, dev,
+                      record_frame_calls(tex_pack, tex_cam, TEXTURED32),
+                      "textured32")
     limits = compare_limits(dev)
     torch.cuda.synchronize()
     for k, v in per_kernel.items():
@@ -2579,14 +2997,8 @@ def main() -> int:
     print("flat any-hit kernel, cull on 480K level-0 bench shadow rays:",
           json.dumps(k2["cull"]), "and on a bench frame's shadow calls:",
           json.dumps(k2["frame_calls"]))
-    print("flat kernels on a textured32 frame's calls (closest key for key, "
-          "any-hit bit for bit; 6016 faces in two instances):",
-          json.dumps({"closest": k1["textured32_calls"],
-                      "anyhit": k2["textured32_calls"]}))
-    print("BVH kernels on a textured32 frame's level-0 calls (every lane "
-          "against the brute-force twin; results and counts against "
-          "bvh_walk_ref on subsets):",
-          json.dumps({k: per_kernel[k]["textured32_calls"] for k in BVH}))
+    print_frame_calls(per_kernel, "textured32",
+                      "6016 faces in two instances")
     print("grouped any-hit kernel (7), cull on 480K sorted scattered "
           "big-mesh rays:", json.dumps(route_big["cull"]["anyhit"]))
     k3 = per_kernel["bhrt_shade_setup"]
@@ -2702,10 +3114,39 @@ def main() -> int:
     check(launches["textured32"].get("bhrt_stream_anyhit", 0) > 0,
           "bhrt_stream_anyhit not launched by the textured32 render")
 
+    # Inverse rendering at 1024x1024 on the bench scene: level 0 on the BVH
+    # kernels, level 1 and the chains on the flat kernels, shading unfused.
+    paths["inverse"], launches["inverse"], (inv_pack, rec) = \
+        inverse_main_path(dev)
+    pi = paths["inverse"]
+    fp, bp = pi["forward_profiled"], pi["backward_profiled"]
+    print(f"main path inverse {pi['size']} ({card}): forward "
+          f"{pi['forward_ms']:.1f} ms ({fp['launches']} launches, "
+          f"{fp['syncs']} syncs, device busy {fp['device_busy_ms']:.1f} ms), "
+          f"backward {pi['backward_ms']:.1f} ms ({bp['launches']} launches, "
+          f"{bp['syncs']} syncs, device busy {bp['device_busy_ms']:.1f} ms), "
+          f"peak device memory {pi['peak_memory_gib']:.2f} GiB, "
+          f"Adam steps {json.dumps(pi['adam_step_s'])} s, loss "
+          f"{pi['adam_losses'][0]:.6g} -> {pi['adam_losses'][-1]:.6g}, "
+          f"diffuse L1 error {pi['diffuse_l1_err'][0]:.4f} -> "
+          f"{pi['diffuse_l1_err'][1]:.4f}, drops {pi['drops']}")
+    print("launches inverse:", json.dumps(launches["inverse"]))
+    # Kernels 1, 2, 4 and 5 on every call of the inverse forward.
+    frame_call_checks(per_kernel, inv_pack, dev, rec, "inverse")
+    del rec
+    print_frame_calls(per_kernel, "inverse",
+                      f"{INVERSE_SIZE}x{INVERSE_SIZE} INVERSE forward")
+    tgrad = textured_gradient(dev)
+    print(f"textured gradient {tgrad['size']} ({card}):", json.dumps(tgrad))
+    grads = gradients_vs_cpu(dev, pmap)
+    print(f"gradients on the card vs the CPU (|g_gpu - g_cpu| <= {GRAD_RTOL} "
+          f"max|g_cpu| + {GRAD_ATOL}):", json.dumps(grads))
+
     tiny_cam.width, tiny_cam.height = 800, 600
     timg = B.render_image(tiny_pack, tiny_cam, render_config(HEADLINE))
     check(bool(torch.isfinite(timg).all()), "tiny_scene image not finite")
-    print(json.dumps({"main_path": paths, "card": card}))
+    print(json.dumps({"main_path": paths, "gradients_vs_cpu": grads,
+                      "textured_gradient": tgrad, "card": card}))
     print(json.dumps({"kernels": [
         dict(**KERNELS[k], route="cuda",
              launches=sum(lx.get(k, 0) for lx in launches.values()),

@@ -18,6 +18,16 @@ def pack_dict(jpack) -> dict:
             for v in [getattr(jpack, f.name)]}
 
 
+def params_from_numpy(d: dict, device="cpu") -> dict:
+    """A JAX trainable_params dict, its arrays as numpy, as the port's
+    (float32 tensors on `device`), so that both packages differentiate
+    the same values."""
+    import torch
+
+    return {k: torch.from_numpy(np.array(v, np.float32, order="C")).to(device)
+            for k, v in d.items()}
+
+
 def teapot_desc(obj: str):
     """The JAX SceneDesc of the tiny scene plus assets/Resource/Data/<obj>
     at scale 0.25 moved by (0, 2.5, 0): bench._builtin_bench_scene's scene

@@ -138,9 +138,10 @@ def test_trace_route_matches_reference(name):
 
 
 def test_render_refuses_what_is_not_ported():
+    # differentiable renders (tests/test_torch_gradients.py); the other four
+    # options are still refused.
     pack, cam = port_pack("tiny"), _camera("tiny")
-    for kw in (dict(differentiable=True),
-               dict(use_denoiser=True), dict(use_dof=True),
+    for kw in (dict(use_denoiser=True), dict(use_dof=True),
                dict(adaptive_spp=4)):
         with pytest.raises(NotImplementedError):
             render_image(pack, cam, RenderConfig(**kw))

@@ -18,7 +18,8 @@ analytic tables of any length:
     stream kernels' 197,632 faces: the port traces it with the BVH kernels
     where the reference streams it, agrees with the reference's trace, and
     renders it;
-  - (e) the analytic tables the router caches per pack.
+  - (e) the analytic tables the router caches per pack;
+  - (f) every route on rays that require grad: detached, equal hits.
 
 Tolerances, and why:
   - drop and segment counts are equal;
@@ -255,6 +256,45 @@ def test_trace_twins_on_40_spheres_and_40_planes(name, reorder):
                                           reorder=reorder))
         assert 0.05 < jocc.mean() < 0.95
         np.testing.assert_array_equal(occ, jocc)
+
+
+@pytest.mark.parametrize("name,reorder,route", [
+    ("spheres40_planes40", True, "analytic"),
+    ("spheres40_planes40+teapot", True, "stream"),
+    ("spheres40_planes40+teapot", False, "bvh"),
+    ("grid72", True, "stream_hbm")])
+def test_routes_take_detached_rays(name, reorder, route):
+    """Every trace route detaches its rays and t_max (a differentiable
+    render's traces, as the JAX package's stop_gradient): on rays that
+    require grad the hits and occlusion equal those of the same rays
+    without a graph, and carry none; the analytic tables of a pack whose
+    instance tables require grad carry none either. grid72 is
+    grid_scene(72): 10,368 faces, the grouped stream route with its
+    coherence sort."""
+    if name == "grid72":
+        pack = scenes.grid_scene(72, "cpu")[0]
+        o, d = _grid_rays(512, 47)
+    else:
+        pack = port_scene(name)
+        o, d = seeded_rays(512, 47)
+    assert trace_route(pack, reorder) == route
+    pack = dataclasses.replace(
+        pack, sph_pos=pack.sph_pos.clone().requires_grad_(),
+        pln_itm=pack.pln_itm.clone().requires_grad_())
+    assert not any(t.requires_grad for t in analytic_tables(pack))
+    o, d = torch.from_numpy(o), torch.from_numpy(d)
+    og, dg = o.clone().requires_grad_(), d.clone().requires_grad_()
+    for side in ("front", "both"):
+        h = trace_closest(pack, og, dg, side, reorder=reorder)
+        ref = trace_closest(pack, o, d, side, reorder=reorder)
+        assert not h.t.requires_grad and bool(h.hit.any())
+        for a, b in zip(h, ref):
+            assert torch.equal(a, b)
+    t_max = torch.full((512,), 1.0, requires_grad=True)
+    occ = trace_shadow(pack, og * 1.0, dg, t_max, 1e-5, reorder=reorder)
+    assert not occ.requires_grad
+    assert torch.equal(occ, trace_shadow(pack, o, d, t_max.detach(), 1e-5,
+                                         reorder=reorder))
 
 
 def _grid_rays(n, seed):

@@ -168,3 +168,58 @@ def test_fused_step_matches_unfused_functions(name, seed):
                              (f.cos_phi1, u.cos_phi1, 1e-4, 1e-5)):
         np.testing.assert_allclose(a.numpy()[m], b.numpy()[m], rtol=rtol,
                                    atol=atol)
+
+
+@pytest.mark.parametrize("name,seed", [("tiny", 15), ("bench", 16),
+                                       ("lights0", 17), ("textured", 18)])
+def test_unfused_step_gradients_finite(name, seed):
+    """A differentiable render shades unfused (the gate's differentiable
+    clause, as pallas_shade.py:508), and the unfused step's gradients with
+    respect to the rays and the material, light, vertex and texture tables
+    are finite on every lane, shaded or not: the masked branches (misses,
+    no lights, grazing and degenerate directions, the 32-tap filter) are
+    guarded as the JAX package guards them (safe_sqrt, safe_pow, the
+    plane's and the mesh's graze selects)."""
+    import dataclasses
+
+    from bhraytracer_tpu_torch import scenes
+    from bhraytracer_tpu_torch.models import pathtracer as PT
+    from bhraytracer_tpu_torch.ops.trace import rows_from_pools, trace_closest
+
+    if name == "lights0":
+        pack = scenes.crowd_scene("lights0", "cpu")[0]
+    elif name == "textured":
+        pack = scenes.textured_scene("cpu")[0]
+    else:
+        pack = port_pack(name)
+    cfg = RenderConfig(differentiable=True)
+    assert not S.shade_setup_supported(pack, cfg, None)
+    keys = ["mtl_diffuse", "mtl_specular", "mtl_gloss", "mtl_refraction",
+            "light_intensity", "light_vec"]
+    if pack.n_msh:
+        keys.append("verts")
+    if pack.n_texmaps:
+        keys += ["tex_c1", "atlas"]
+    leaves = {k: getattr(pack, k).detach().float().clone().requires_grad_()
+              for k in keys}
+    pack = dataclasses.replace(pack, **leaves)
+    if pack.n_msh:
+        pack = dataclasses.replace(pack, resolve_rows=rows_from_pools(pack))
+    o, d = (torch.from_numpy(x).requires_grad_()
+            for x in seeded_rays(N, seed))
+    rng = np.random.default_rng(seed)
+    u_tab = torch.from_numpy(rng.uniform(size=(N, 13)).astype(np.float32))
+    hit = trace_closest(pack, o, d, "front")
+    shade = hit.hit & torch.from_numpy(rng.uniform(size=N) > 0.1)
+    sh = PT._shade_unfused(pack, cfg, o, d, hit, shade, u_tab)
+    outs = (sh.surf.p, sh.surf.n, sh.direct, sh.refr_eff, sh.gi_o, sh.gi_d,
+            sh.gi_albedo, sh.gi_env)
+    loss = sum((torch.where(shade[:, None], x, 0.0)
+                * torch.from_numpy(rng.normal(size=(N, 3)).astype(np.float32))
+                ).sum() for x in outs)
+    grads = torch.autograd.grad(loss, [o, d, *leaves.values()],
+                                allow_unused=True)
+    assert int(shade.sum()) > N // 4
+    for k, g in zip(["o", "d", *leaves], grads):
+        assert g is None or bool(torch.isfinite(g).all()), k
+    assert float(grads[2].abs().max()) > 0  # mtl_diffuse
