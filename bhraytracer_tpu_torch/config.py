@@ -3,9 +3,7 @@
 One chunk driver, no TPU knobs: the JAX package's `ablate`,
 `fused_levels`, `level_presort`, `*_reorder`, `inflight_chunks` and
 `remat_levels` fields have no counterpart here (per-level remat was the
-TPU's memory workaround for gradients). Options the port does not run yet
-(denoiser, depth of field, adaptive sampling) stay as fields so that
-`render_image` can refuse them by name.
+TPU's memory workaround for gradients).
 """
 
 from __future__ import annotations
@@ -66,10 +64,17 @@ class RenderConfig:
     # texture tables (models/pathtracer.py:_render_chunk).
     differentiable: bool = False
 
-    # Not ported yet: render_image raises NotImplementedError on each.
+    # The learned denoiser after the render (models/denoiser.py, in place
+    # of the reference's OIDN, Main.cpp:57-95).
     use_denoiser: bool = False
+    # Thin-lens depth of field over the camera's `dof` aperture
+    # (ops/camera.py; the reference's integrator renders pinhole).
     use_dof: bool = False
+    # Adaptive sampling (bhraytracer_tpu/config.py:179-187): after the base
+    # pass, the `adaptive_fraction` highest-contrast pixels take
+    # `adaptive_spp` extra samples; the image divides by each pixel's count.
     adaptive_spp: int = 0
+    adaptive_fraction: float = 0.15
 
     @property
     def max_levels(self) -> int:

@@ -48,6 +48,7 @@ import numpy as np
 import torch
 
 from bhraytracer_tpu_torch.config import RenderConfig
+from bhraytracer_tpu_torch.models.denoiser import denoise, load_pretrained
 from bhraytracer_tpu_torch.models.photonmap import (
     build_photon_map,
     gather_irradiance,
@@ -87,6 +88,10 @@ from bhraytracer_tpu_torch.ops.trace import (
     rows_from_pools,
     trace_closest,
     trace_shadow,
+)
+from bhraytracer_tpu_torch.utils.checkpoint import (
+    load_render_state,
+    save_render_state,
 )
 
 NAN_PURPLE = (1.0, 0.0, 1.0)  # Color::NANPurple (cyColor.h:130)
@@ -714,11 +719,16 @@ def _pixels(width: int, height: int, chunk: int, start: int, device):
     return idx % width, idx // width
 
 
-def _camera_rays(cam, width: int, height: int, px, py, key):
+def _camera_rays(cfg: RenderConfig, cam, width: int, height: int, px, py,
+                 key):
     """Jittered camera rays of pixels (px, py), the jitter from
     fold_in(key, 0), and each pixel's background uv (px/width, py/height,
-    0) (pathtracer.py:1076-1090)."""
-    u = rng.uniform(rng.fold_in(key, 0), (px.shape[0], 2))
+    0) (pathtracer.py:1076-1090). With cfg.use_dof the draw is (N,4), its
+    last two columns the lens sample: threefry's values depend on the
+    draw's shape, so the pixel jitter is a (N,4) draw's first two columns,
+    as in the reference (pathtracer.py:1120-1121)."""
+    u = rng.uniform(rng.fold_in(key, 0), (px.shape[0], 4 if cfg.use_dof
+                                          else 2))
     o, d = gen_rays(cam, width, height, px, py, u)
     bg_uv = torch.stack([px.float() / width, py.float() / height,
                          o.new_zeros(px.shape[0])], -1)
@@ -731,16 +741,29 @@ def _raygen(pack, cfg, cam, width: int, height: int, chunk: int, start: int,
     and their background colours, sampled at the pixel's uv
     (pathtracer.py:1108-1153)."""
     px, py = _pixels(width, height, chunk, start, ck.device)
-    o, d, bg_uv = _camera_rays(cam, width, height, px, py, ck)
+    o, d, bg_uv = _camera_rays(cfg, cam, width, height, px, py, ck)
     return o, d, sample_background(pack, bg_uv)
 
 
+def _stage_aux(pack, surf: Surface, hit_mask):
+    """The denoiser's auxiliary channels from a level-0 surface: the
+    first-hit diffuse albedo (one texture tap) and the world normal, the
+    buffers OIDN's RT filter takes (Main.cpp:68-77); misses give 0
+    (pathtracer.py:1171-1179)."""
+    mtl = _fetch_mtl(pack, surf.mtl)
+    albedo = textured_color(pack, mtl.diffuse, mtl.diffuse_tm, surf.uvw,
+                            surf.duvw, taps=1)
+    m = hit_mask[:, None]
+    return torch.where(m, albedo, 0.0), torch.where(m, surf.n, 0.0)
+
+
 def trace_radiance(pack, cfg: RenderConfig, o, d, bg_uv, key, dd_x, dd_y,
-                   pmap=None):
+                   pmap=None, want_aux: bool = False):
     """Radiance of camera rays (o, d) with per-pixel background uv
     (pathtracer.py:1024-1073): (rad (N,3), z0 (N,), ChunkStats of 0-dim
-    tensors summed over the shade tree). Level l draws from
-    fold_in(key, 100 + l)."""
+    tensors summed over the shade tree), and with want_aux also the
+    (albedo, normal) of the level-0 surface (`_stage_aux`). Level l draws
+    from fold_in(key, 100 + l)."""
     if cfg.differentiable and pack.n_msh:
         # Mesh hits resolve through rows gathered from the vertex, normal
         # and uv pools, so their gradients reach pack.verts
@@ -754,9 +777,11 @@ def trace_radiance(pack, cfg: RenderConfig, o, d, bg_uv, key, dd_x, dd_y,
                                     device=o.device))
     recs = []
     for level in range(cfg.max_levels):
-        rec, tasks, _ = _shade_level(pack, cfg, tasks, level,
-                                     rng.fold_in(key, 100 + level), pmap,
-                                     dd_x, dd_y)
+        rec, tasks, surf = _shade_level(pack, cfg, tasks, level,
+                                        rng.fold_in(key, 100 + level), pmap,
+                                        dd_x, dd_y)
+        if level == 0:
+            surf0 = surf
         recs.append(rec)
     rad = _combine_tree(cfg, recs, tasks.active)
     rad = torch.where(recs[0].hit[:, None], rad, sample_background(pack, bg_uv))
@@ -764,41 +789,23 @@ def trace_radiance(pack, cfg: RenderConfig, o, d, bg_uv, key, dd_x, dd_y,
     stats = ChunkStats(*(sum(getattr(r, f).to(torch.int64) for r in recs)
                          for f in ("drop_refr", "drop_tir", "drop_gi",
                                    "segs")))
+    if want_aux:
+        return rad, z0, stats, _stage_aux(pack, surf0, recs[0].hit)
     return rad, z0, stats
 
 
 def _render_chunk(pack, cfg: RenderConfig, cam, width: int, height: int, px,
-                  py, key, photon_map=None):
+                  py, key, photon_map=None, want_aux: bool = False):
     """Radiance of one chunk of (pixel, sample) lanes, px/py (N,): (rad
-    (N,3), z0 (N,), ChunkStats) (pathtracer.py:1076-1098). Camera jitter
-    from fold_in(key, 0), the shade tree from fold_in(key, 1). A plain
-    function of the pack's and the camera's tensors: with
-    cfg.differentiable, torch.autograd takes its gradients
-    (parallel/sharding.py)."""
-    o, d, bg_uv = _camera_rays(cam, width, height, px, py, key)
+    (N,3), z0 (N,), ChunkStats), and with want_aux the level-0 (albedo,
+    normal) (pathtracer.py:1076-1098). Camera jitter from fold_in(key, 0),
+    the shade tree from fold_in(key, 1). A plain function of the pack's and
+    the camera's tensors: with cfg.differentiable, torch.autograd takes its
+    gradients (parallel/sharding.py)."""
+    o, d, bg_uv = _camera_rays(cfg, cam, width, height, px, py, key)
     _, dd_x, dd_y = camera_basis(cam, width, height)
     return trace_radiance(pack, cfg, o, d, bg_uv, rng.fold_in(key, 1), dd_x,
-                          dd_y, photon_map)
-
-
-def check_supported_render(pack, cfg: RenderConfig,
-                           checkpoint_dir=None) -> None:
-    """Raise NotImplementedError on inputs outside the slice, naming the
-    ROADMAP item that ports each."""
-    todo = [
-        (checkpoint_dir is not None, "checkpoint_dir: resumable renders come "
-                                     "with the CLI, ROADMAP Queue 1 item 14"),
-        (cfg.use_denoiser, "use_denoiser: the denoiser is ROADMAP Queue 1 "
-                           "item 12"),
-        (cfg.use_dof, "use_dof: depth of field comes with the CLI, "
-                      "ROADMAP Queue 1 item 14"),
-        (cfg.adaptive_spp > 0, "adaptive_spp: adaptive sampling is ROADMAP "
-                               "Queue 1 item 6 (rest)"),
-    ]
-    for bad, what in todo:
-        if bad:
-            raise NotImplementedError(what)
-    check_traceable(pack)
+                          dd_y, photon_map, want_aux)
 
 
 def _escalated(cfg: RenderConfig, esc: int) -> RenderConfig:
@@ -815,22 +822,61 @@ def _escalated(cfg: RenderConfig, esc: int) -> RenderConfig:
         tir_tail_divisor=max(1, cfg.tir_tail_divisor >> esc))
 
 
+def _adaptive_select(img_lin: np.ndarray, fraction: float) -> np.ndarray:
+    """The adaptive pass's pixels (pathtracer.py:1565-1571): the
+    max(1, int(total * fraction)) highest-contrast pixels of the (H, W, 3)
+    linear image, by the 3x3 edge-padded box contrast, ascending flat
+    indices. Host numpy, the reference's expression."""
+    height, width = img_lin.shape[:2]
+    total = height * width
+    pad = np.pad(img_lin, ((1, 1), (1, 1), (0, 0)), mode="edge")
+    blur = sum(pad[i:i + height, j:j + width]
+               for i in range(3) for j in range(3)) / 9.0
+    metric = np.abs(img_lin - blur).sum(-1).reshape(-1)
+    k_sel = max(1, int(total * fraction))
+    return np.sort(np.argpartition(metric, total - k_sel)[total - k_sel:])
+
+
 def render_image(pack, camera, cfg: RenderConfig = RenderConfig(),
-                 seed: int = 0, return_stats: bool = False,
-                 checkpoint_dir=None, photon_map=None):
+                 seed: int = 0, photon_map=None, denoiser=None,
+                 return_aux: bool = False, checkpoint_dir=None,
+                 sample_offset: int = 0, return_stats: bool = False):
     """Render a full image: (H, W, 3) float32 in [0,1] after gamma
     (Main.cpp:216-231), on the pack's device. `camera` is a scene-desc
-    Camera. With return_stats, also the ChunkStats summed over the image.
+    Camera (pathtracer.py:1406-1631).
 
     With cfg.use_photon_map, the caustic photon map is built first with
     `seed`, unless a built PhotonMapPack is passed as `photon_map`
     (pathtracer.py:1421-1426); without it, `photon_map` is ignored.
 
     Lanes are (pixel, sample); the image is cut into chunks of
-    cfg.chunk_rays pixels and each chunk renders its spp samples. A chunk
-    whose drop counters are nonzero is re-rendered with escalating
-    capacities (pathtracer.py:1491-1510)."""
-    check_supported_render(pack, cfg, checkpoint_dir)
+    cfg.chunk_rays pixels and each chunk renders its spp samples, sample s
+    keyed fold_in(fold_in(key, s + sample_offset), start): K passes of
+    spp/K samples at offsets 0, spp/K, ... draw the samples of one pass of
+    spp (the CLI's --progressive). A chunk whose drop counters are nonzero
+    is re-rendered with escalating capacities (pathtracer.py:1491-1521).
+    With checkpoint_dir, the accumulation, z-buffer and finished chunks
+    are saved after each chunk, and a render of the same config, size and
+    seed resumes from them (utils/checkpoint.py).
+
+    With cfg.adaptive_spp, the cfg.adaptive_fraction highest-contrast
+    pixels (`_adaptive_select`) then take adaptive_spp more samples each,
+    keyed fold_in(fold_in(key, 0x5EED + s), a_start), and each pixel's
+    radiance divides by its own count (pathtracer.py:1560-1602). An
+    adaptive chunk that drops lanes escalates as a base chunk does, where
+    the reference keeps its lossy samples.
+
+    With cfg.use_denoiser, the post-gamma image goes through `denoiser` (a
+    models/denoiser.DenoiserUNet; the shipped weights when None), with the
+    first-hit albedo and normal as aux when the model takes them.
+
+    Returns the image; with return_aux also a dict of host numpy arrays
+    (the reference's keys: zbuffer (H,W) of the first sample's first-hit z,
+    misses BIG; sample_count (H,W) int32; albedo and normal (H,W,3) of the
+    first sample's first hit; dropped_lanes; traced_segments); with
+    return_stats also the ChunkStats summed over the image, after the
+    dict."""
+    check_traceable(pack)
     if not cfg.use_photon_map:
         photon_map = None
     elif photon_map is None:
@@ -840,42 +886,135 @@ def render_image(pack, camera, cfg: RenderConfig = RenderConfig(),
     width, height = camera.width, camera.height
     total = width * height
     chunk = min(max(1, cfg.chunk_rays), total)
+    n_chunks = -(-total // chunk)
     key = rng.prng_key(seed, dev)
     accum = torch.zeros((total, 3), device=dev)
+    zbuffer = torch.full((total,), BIG, device=dev)
+    done = np.zeros(n_chunks, bool)
+    if cfg.use_denoiser and denoiser is None:
+        denoiser = load_pretrained(device=dev)
+    want_aux = return_aux or (cfg.use_denoiser and denoiser.aux_channels > 0)
+    albedo = torch.zeros((total, 3), device=dev) if want_aux else None
+    normal = torch.zeros((total, 3), device=dev) if want_aux else None
+    if checkpoint_dir:
+        state = load_render_state(checkpoint_dir, cfg, width, height, seed,
+                                  with_aux=True)
+        if state is not None:
+            accum, zbuffer = (torch.from_numpy(np.array(x)).to(dev)
+                              for x in state[:2])
+            done = np.array(state[2])
+            if want_aux and state[3] is not None:
+                # The finished chunks' aux (the reference keeps none, so
+                # its resumed denoise reads zeros there).
+                albedo, normal = (torch.from_numpy(np.array(x)).to(dev)
+                                  for x in state[3])
     totals = np.zeros(4, np.int64)
 
-    def run_chunk(cfg_run, start):
-        px, py = _pixels(width, height, chunk, start, dev)
-        acc = torch.zeros((chunk, 3), device=dev)
+    def run_lanes(cfg_run, px, py, keys, with_aux: bool):
+        """The samples of one chunk of lanes, sample s keyed keys[s]: (the
+        summed radiance, the first sample's z0 and aux, host stats)."""
+        acc = torch.zeros((px.shape[0], 3), device=dev)
         st = torch.zeros(4, dtype=torch.int64, device=dev)
-        for s in range(cfg.spp):
-            # Chunk key fold_in(fold_in(key, sample), start).
-            ck = rng.fold_in(rng.fold_in(key, s), start)
-            rad, _, stats = _render_chunk(pack, cfg_run, cam, width, height,
-                                          px, py, ck, photon_map)
-            acc = acc + rad
-            st = st + torch.stack(list(stats))
-        return acc, st.cpu().numpy()
+        z = aux = None
+        for s, ck in enumerate(keys):
+            out = _render_chunk(pack, cfg_run, cam, width, height, px, py,
+                                ck, photon_map, want_aux=with_aux and s == 0)
+            if s == 0:
+                z = out[1]
+                aux = out[3] if with_aux else None
+            acc = acc + out[0]
+            st = st + torch.stack(list(out[2]))
+        return acc, z, aux, st.cpu().numpy()
 
-    for start in range(0, total, chunk):
-        acc, st = run_chunk(cfg, start)
+    def run_escalating(px, py, keys, with_aux: bool = False):
+        """run_lanes, re-rendered with escalating capacities while the
+        chunk drops lanes (pathtracer.py:1491-1521)."""
+        out = run_lanes(cfg, px, py, keys, with_aux)
         esc = 0
         cfg_run = cfg
-        while st[:3].any() and cfg_run.adaptive_full_capacity:
+        while out[3][:3].any() and cfg_run.adaptive_full_capacity:
             esc += 1
             cfg_run = _escalated(cfg, esc)
-            acc, st = run_chunk(cfg_run, start)
+            out = run_lanes(cfg_run, px, py, keys, with_aux)
+        return out
+
+    for start in range(0, total, chunk):
+        if done[start // chunk]:
+            continue
+        px, py = _pixels(width, height, chunk, start, dev)
+        acc, z, aux, st = run_escalating(
+            px, py, [rng.fold_in(rng.fold_in(key, s + sample_offset), start)
+                     for s in range(cfg.spp)], want_aux)
         count = min(start + chunk, total) - start
         accum[start:start + count] = acc[:count]
+        zbuffer[start:start + count] = z[:count]
+        if want_aux:
+            albedo[start:start + count] = aux[0][:count]
+            normal[start:start + count] = aux[1][:count]
         totals += st
+        done[start // chunk] = True
+        if checkpoint_dir:
+            save_render_state(checkpoint_dir, accum.cpu().numpy(),
+                              zbuffer.cpu().numpy(), done, cfg, width,
+                              height, seed,
+                              aux=(albedo.cpu().numpy(), normal.cpu().numpy())
+                              if want_aux else None)
 
-    img = accum / float(cfg.spp)
+    # Per-pixel sample counts (scene.h:532-536, 605-626): the base pass's
+    # spp everywhere, plus the adaptive pass's extra samples.
+    sample_counts = np.full(total, cfg.spp, np.int64)
+    if cfg.adaptive_spp > 0:
+        sel = _adaptive_select(
+            (accum.cpu().numpy() / cfg.spp).reshape(height, width, 3),
+            cfg.adaptive_fraction)
+        k_sel = sel.shape[0]
+        # One bucket of 1024-lane multiples (the pad sets the draw's shape,
+        # hence the threefry values: the reference's, pathtracer.py:1572).
+        a_chunk = min(chunk, max(1024, -(-k_sel // 1024) * 1024))
+        for a_start in range(0, k_sel, a_chunk):
+            part = sel[a_start:a_start + a_chunk]
+            count = part.shape[0]
+            idx = torch.from_numpy(np.concatenate(
+                [part, np.full(a_chunk - count, sel[0], np.int64)])).to(dev)
+            # Its pixels are the high-contrast ones, where the glass is:
+            # a chunk that drops lanes escalates as the base pass's do (the
+            # reference counts the drops and keeps the lossy samples).
+            acc, _, _, st = run_escalating(
+                idx % width, idx // width,
+                [rng.fold_in(rng.fold_in(key, 0x5EED + s), a_start)
+                 for s in range(cfg.adaptive_spp)])
+            totals += st
+            rows = torch.from_numpy(part).to(dev)
+            accum[rows] = accum[rows] + acc[:count]
+            sample_counts[part] += cfg.adaptive_spp
+
+    img = accum / torch.from_numpy(sample_counts.astype(np.float32)).to(
+        dev)[:, None]
     if cfg.use_gamma:
         img = torch.pow(torch.clamp_min(img, 0.0), 1.0 / cfg.gamma)
     img = img.reshape(height, width, 3)
+    if cfg.use_denoiser:
+        # The post-gamma image, as the reference hands OIDN its
+        # gamma-corrected colours (Main.cpp:220-238).
+        aux_in = None
+        if denoiser.aux_channels > 0:
+            aux_in = torch.cat([albedo, normal], -1).reshape(height, width, 6)
+        img = denoise(denoiser, img, aux=aux_in)
+    out = [img]
+    if return_aux:
+        out.append({
+            "zbuffer": zbuffer.reshape(height, width).cpu().numpy(),
+            "sample_count": sample_counts.reshape(height, width).astype(
+                np.int32),
+            "albedo": albedo.reshape(height, width, 3).cpu().numpy(),
+            "normal": normal.reshape(height, width, 3).cpu().numpy(),
+            "dropped_lanes": {"refr_overflow": int(totals[0]),
+                              "tir_overflow": int(totals[1]),
+                              "gi_overflow": int(totals[2])},
+            "traced_segments": int(totals[3])})
     if return_stats:
-        return img, ChunkStats(*(int(x) for x in totals))
-    return img
+        out.append(ChunkStats(*(int(x) for x in totals)))
+    return out[0] if len(out) == 1 else tuple(out)
 
 
 def image_to_u8(img) -> np.ndarray:
@@ -883,3 +1022,18 @@ def image_to_u8(img) -> np.ndarray:
     if isinstance(img, torch.Tensor):
         img = img.detach().cpu().numpy()
     return np.clip(np.asarray(img) * 255.0 + 0.5, 0.0, 255.0).astype(np.uint8)
+
+
+def zbuffer_to_u8(zbuffer) -> np.ndarray:
+    """ComputeZBufferImage (scene.h:579-601): finite z normalised to
+    [0, 255], near bright; misses (BIG) map to 0 (pathtracer.py:1639)."""
+    z = np.asarray(zbuffer)
+    mask = z < BIG
+    if not mask.any():
+        return np.zeros(z.shape, np.uint8)
+    zmin = z[mask].min()
+    zmax = z[mask].max()
+    denom = max(zmax - zmin, 1e-30)
+    img = np.clip((zmax - z) / denom * 255.0, 0, 255).astype(np.uint8)
+    img[~mask] = 0
+    return img

@@ -1,9 +1,10 @@
 """Camera basis and primary-ray generation (the port of
-bhraytracer_tpu/ops/camera.py, without depth of field).
+bhraytracer_tpu/ops/camera.py).
 
 BeginRender's basis (Main.cpp:178-192) and PathTracing's jittered pixel
 sampling (Main.cpp:132-155), including the reference's integer-division
-quirk `(i + 1/2) == i`: pixel positions are corners, not centres.
+quirk `(i + 1/2) == i`: pixel positions are corners, not centres; and the
+thin-lens eye jitter of depth of field (viewport.cpp:238-243).
 """
 
 from __future__ import annotations
@@ -21,6 +22,9 @@ class CameraParams(NamedTuple):
     up: torch.Tensor  # (3,)
     fov: torch.Tensor  # () degrees
     focaldist: torch.Tensor  # ()
+    # Thin-lens aperture radius (scene.h:518 `dof`); only renders with
+    # cfg.use_dof read it, as the reference's integrator never does.
+    dof: torch.Tensor | float = 0.0
 
 
 def from_scene_camera(cam, device=None) -> CameraParams:
@@ -28,7 +32,8 @@ def from_scene_camera(cam, device=None) -> CameraParams:
         return torch.as_tensor(x, dtype=torch.float32, device=device)
 
     return CameraParams(pos=f(cam.pos), dir=f(cam.dir), up=f(cam.up),
-                        fov=f(cam.fov), focaldist=f(cam.focaldist))
+                        fov=f(cam.fov), focaldist=f(cam.focaldist),
+                        dof=f(getattr(cam, "dof", 0.0)))
 
 
 def camera_basis(cam: CameraParams, width: int, height: int):
@@ -48,7 +53,10 @@ def camera_basis(cam: CameraParams, width: int, height: int):
 
 def gen_rays(cam: CameraParams, width: int, height: int, px, py, u):
     """Jittered primary rays for pixel columns px, rows py and (N,2) jitter
-    uniforms u; directions are unnormalised (t = 1 at the image plane)."""
+    uniforms u; directions are unnormalised (t = 1 at the image plane).
+    With (N,4) uniforms, columns 2-3 also jitter the eye over the aperture
+    disc of radius cam.dof, in the (dir x up, up) plane; the target stays
+    on the focal plane, so objects there render sharp."""
     top_left, dd_x, dd_y = camera_basis(cam, width, height)
     center = (top_left[None, :] + px[:, None].float() * dd_x[None, :]
               - py[:, None].float() * dd_y[None, :])
@@ -58,4 +66,11 @@ def gen_rays(cam: CameraParams, width: int, height: int, px, py, u):
               + normalize(dd_y)[None, :]
               * ((u[:, 1] * 2.0 - 1.0) * pixel_len / 2.0)[:, None])
     target = center + jitter
+    if u.shape[1] >= 4:
+        cam_x = cross(cam.up, -cam.dir)  # == dir x up (the reference's v)
+        r = torch.sqrt(u[:, 2]) * cam.dof
+        a = u[:, 3] * 2.0 * torch.pi
+        o = (cam.pos[None, :] + (r * torch.cos(a))[:, None] * cam_x[None, :]
+             + (r * torch.sin(a))[:, None] * cam.up[None, :])
+        return o, target - o
     return cam.pos.expand(target.shape), target - cam.pos

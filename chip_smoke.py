@@ -46,9 +46,18 @@ steps that must lower the loss and the diffuse error; kernels 1, 2, 4
 and 5 held against their twins on every trace call of its forward),
 times the gradient of the textured scene at 1024x1024 with 32 filter
 taps, and holds the card's gradients and radiance to the CPU's on the two
-finite-difference setups of the JAX tests and on the photon scene; and
-prints the card, the numbers and
-one JSON line per result. The last line is the device line. Any failed
+finite-difference setups of the JAX tests and on the photon scene; runs
+the finished render (the bench scene at 800x600 with HEADLINE, 4 adaptive
+samples on the 15% highest-contrast pixels, the aux outputs and the
+shipped denoiser: base pass, adaptive pass and denoise timed, launches,
+peak memory; kernels 1, 2, 4 and 5 held against their twins on every
+trace call of its adaptive pass), the same with 2 adaptive samples at
+64x48 on the card against the CPU (the bench scene and the photon scene,
+radiance, z-buffer, sample counts and the denoised image), and the
+command line (`python -m bhraytracer_tpu_torch render` of the textured
+scene at 800x600 with 2 adaptive samples, a z-buffer and a checkpoint,
+twice: the resumed run writes the same bytes); and prints the card, the
+numbers and one JSON line per result. The last line is the device line. Any failed
 check raises and the script exits non-zero; so does a run without a CUDA
 card or outside a checkout.
 
@@ -78,6 +87,12 @@ the bench scene: a value_and_grad with its forward and backward times,
 launches, syncs and peak memory, then 5 Adam steps, and the checks of
 its trace calls), the textured gradient and the card-vs-CPU gradient
 comparisons of the default run.
+
+    python3 chip_smoke.py --finish
+
+builds the kernels and runs only the finished render's three checks of
+the default run (800x600 with its trace calls, card against CPU, the
+command line).
 
     python3 chip_smoke.py --textured-gradient
 
@@ -147,6 +162,14 @@ TEXTURED32 = dict(HEADLINE, texture_sample_count=32)
 INVERSE = dict(spp=1, gi_bounces=1, extra_refr_levels=0, tir_bounces=2,
                texture_sample_count=1, differentiable=True)
 INVERSE_SIZE, INVERSE_STEPS, INVERSE_LR = 1024, 5, 5e-2
+# The finished render: the bench scene with HEADLINE, 4 adaptive samples on
+# the 15% highest-contrast pixels (72,000 pixels, one 72,704-lane chunk a
+# sample), the aux outputs and the shipped denoiser; and its card-vs-CPU
+# check at FINISH_SIZE on SMALL with 2 adaptive samples.
+FINISH = dict(HEADLINE, adaptive_spp=4, adaptive_fraction=0.15,
+              use_denoiser=True)
+FINISH_SMALL = dict(SMALL, adaptive_spp=2, adaptive_fraction=0.15)
+FINISH_SIZE = (64, 48)
 # Gradients on the card against the CPU: |g_gpu - g_cpu| <= GRAD_RTOL *
 # max|g_cpu| + GRAD_ATOL per parameter. The hit ids are equal (kernel ==
 # twin), so the two differ by the order of float sums (the backward's
@@ -222,6 +245,9 @@ SPHERE_OPS = 67  # local ray 33, quadratic 22, roots and selects 12
 PLANE_OPS = 45  # local ray 33, t 2, extent and side 10
 # A photon pair test: difference 3, squared distance 5, compare 1.
 PAIR_OPS = 9
+# BVH calls of a frame timed one by one (compare_bvh_calls): the finished
+# render's adaptive pass makes 12 of each kind, 4 a try.
+TIMED_CALLS = 4
 
 
 def render_config(cfg_kw):
@@ -265,17 +291,19 @@ def cuda_ms(fn, reps: int) -> float:
 def device_ms(fn, reps: int, names) -> float:
     """Mean device time of fn() in the kernels whose name holds one of
     `names`, from torch.profiler over reps calls after one warm call. A
-    profile that recorded none of them is taken again, up to three times
-    (the profiler has returned a profile without the kernels' records)."""
+    profile that recorded none of them is taken again, up to five times,
+    each over twice the calls of the one before (the profiler has returned
+    a profile without the kernels' records, late in a long run)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
-    for _ in range(3):
+    for attempt in range(5):
+        calls = reps * 2 ** attempt
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
+            for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
         ka = prof.key_averages()
@@ -286,7 +314,7 @@ def device_ms(fn, reps: int, names) -> float:
                  if e.device_type == DeviceType.CUDA
                  and any(n in e.key for n in names))
         if us > 0:
-            return us / reps / 1e3
+            return us / calls / 1e3
     raise AssertionError(f"no device time recorded for {names}")
 
 
@@ -866,9 +894,10 @@ def compare_bvh_calls(pack, dev, calls, what):
     and "anyhit" lists of record_frame_calls): each call's result against
     its brute-force twin on every lane, and its result and per-ray box and
     triangle test counts against bvh_walk_ref's on SUBSET lanes of it; each
-    call timed through the wrapper and on the device. `what` names the
-    frame. Returns per kernel the largest error, lanes compared, lanes
-    walked, tests a ray and the calls' times."""
+    call of the first TIMED_CALLS of each kernel timed through the wrapper
+    and on the device. `what` names the frame. Returns per kernel the
+    largest error, lanes compared, lanes walked, tests a ray and the calls'
+    times."""
     from bhraytracer_tpu_torch.ops import bvh as B
     from bhraytracer_tpu_torch.ops.trace import analytic_tables
 
@@ -887,7 +916,8 @@ def compare_bvh_calls(pack, dev, calls, what):
         lanes += o.shape[0]
         walked += n
         tests.append(c.double().mean(0).tolist())
-        times.append(bvh_times(tabs, sph, pln, o, d, ti, side))
+        if len(times) < TIMED_CALLS:
+            times.append(bvh_times(tabs, sph, pln, o, d, ti, side))
     closest = dict(max_abs_err=max(errs), lanes_compared=lanes,
                    walk_lanes=walked, tests_per_ray=tests, calls=times)
     n_bad, n_occ, lanes, walked, tests, times = 0, 0, 0, 0, [], []
@@ -901,7 +931,8 @@ def compare_bvh_calls(pack, dev, calls, what):
         lanes += o.shape[0]
         walked += n
         tests.append(c.double().mean(0).tolist())
-        times.append(bvh_times(tabs, sph, pln, o, d, tm, shadow=shadow))
+        if len(times) < TIMED_CALLS:
+            times.append(bvh_times(tabs, sph, pln, o, d, tm, shadow=shadow))
     check(n_bad == 0, f"bvh_anyhit ({what}): {n_bad} of {lanes} lanes differ "
           "from the twin")
     check(n_occ > 0, f"bvh_anyhit ({what}): no occluded lane")
@@ -1125,19 +1156,30 @@ def compare_analytic(tiny, cam, dev, pmap):
     }
 
 
-def record_trace_calls(run):
+def record_trace_calls(run, clear_on=None):
     """The trace calls that `run()` makes, as the render makes them: the
     flat closest-hit calls (kernel 1), (o, d, t_init, side) of each (side
     "both" for the refraction chain's trips, "front" for the levels >= 1),
     the flat shadow calls (kernel 2, the levels >= 1), (o, d, t_max, t_min,
     ana_bias, plane_world_bug) of each, and the BVH calls (kernels 4 and 5,
     level 0) in the same two forms under "closest" and "anyhit"; all
-    cloned."""
+    cloned. With clear_on (module, function name), a call of that function
+    forgets the calls recorded before it."""
     from bhraytracer_tpu_torch.ops import trace as T
 
     calls, shadows = [], []
     bvh = dict(closest=[], anyhit=[])
     saved = (T.stream_closest, T.stream_anyhit, T.bvh_closest, T.bvh_anyhit)
+    if clear_on is not None:
+        mod, fname = clear_on
+        marked = getattr(mod, fname)
+
+        def clearing(*args, **kw):
+            for lst in (calls, shadows, bvh["closest"], bvh["anyhit"]):
+                lst.clear()
+            return marked(*args, **kw)
+
+        setattr(mod, fname, clearing)
 
     # Each wrapper takes its n_tabs tables, then sph, pln, o, d and four
     # more arguments positionally (trace.py's calls).
@@ -1166,6 +1208,8 @@ def record_trace_calls(run):
     finally:
         (T.stream_closest, T.stream_anyhit, T.bvh_closest,
          T.bvh_anyhit) = saved
+        if clear_on is not None:
+            setattr(mod, fname, marked)
     return calls, shadows, bvh
 
 
@@ -2347,6 +2391,274 @@ def small_render_vs_cpu(dev):
     return res
 
 
+@contextlib.contextmanager
+def finish_marks():
+    """Within the block, render_image's adaptive selection and denoise
+    stamp the host clock (each stamp after a synchronise): "select" where
+    the base pass has ended (its accumulation copied to the host),
+    "adaptive" where the selection has ended, "denoise" and "denoised"
+    around the denoiser; and "escalations" lists each re-render of a chunk
+    that dropped lanes as (pass, escalation level)."""
+    import torch
+
+    from bhraytracer_tpu_torch.models import pathtracer as PT
+
+    marks, select, denoise = {"escalations": []}, PT._adaptive_select, \
+        PT.denoise
+    escalated = PT._escalated
+
+    def stamp(name):
+        torch.cuda.synchronize()
+        marks[name] = time.perf_counter()
+
+    def timed_select(*args, **kw):
+        stamp("select")
+        out = select(*args, **kw)
+        stamp("adaptive")
+        return out
+
+    def timed_denoise(*args, **kw):
+        stamp("denoise")
+        out = denoise(*args, **kw)
+        stamp("denoised")
+        return out
+
+    def counted(cfg, esc):
+        marks["escalations"].append(
+            ("adaptive" if "adaptive" in marks else "base", esc))
+        return escalated(cfg, esc)
+
+    PT._adaptive_select, PT.denoise = timed_select, timed_denoise
+    PT._escalated = counted
+    try:
+        yield marks
+    finally:
+        PT._adaptive_select, PT.denoise = select, denoise
+        PT._escalated = escalated
+
+
+def denoiser_bound(model, height: int, width: int) -> dict:
+    """The denoiser's operations at (height, width), 2 a multiply-add of
+    each 3x3 convolution at its level's size, and its bound at FP32_PEAK
+    beside the bytes of the input and output at HBM_RATE."""
+    h, w = -(-height // 4) * 4, -(-width // 4) * 4
+    n_enc = len(model.features) - 1
+    scale = [2 ** i for i in range(n_enc)]
+    # convs 0 .. 2*n_enc-1 at the encoder levels, the bottleneck at the
+    # lowest, the decoder convs back up, the output conv at full size.
+    levels = ([s for s in scale for _ in (0, 1)] + [2 ** n_enc]
+              + scale[::-1] + [1])
+    ops = sum(2 * 9 * c.in_channels * c.out_channels * (h // f) * (w // f)
+              for c, f in zip(model.convs, levels))
+    return dict(gflop=ops / 1e9,
+                **bound(h * w * 4 * (3 + model.aux_channels + 3), ops))
+
+
+def finish_main_path(pack, cam, dev):
+    """The finished render at 800x600 (FINISH: the bench scene, HEADLINE,
+    4 adaptive samples on 15% of the pixels, return_aux, the shipped
+    denoiser): once to warm, recording the trace calls of its adaptive
+    pass (record_trace_calls, cleared at the selection); then timed with
+    the launch counters from 0 just before it and read just after, the
+    base pass, the selection, the adaptive pass and the denoise read from
+    finish_marks, and the device memory's peak over it; then the denoise
+    alone by CUDA events. Returns (results, launches, trace calls)."""
+    import numpy as np
+    import torch
+
+    import bhraytracer_tpu_torch as B
+    from bhraytracer_tpu_torch.models import pathtracer as PT
+    from bhraytracer_tpu_torch.ops import kernels
+
+    cfg = render_config(FINISH)
+    cam.width, cam.height = 800, 600
+    rec = record_trace_calls(
+        lambda: B.render_image(pack, cam, cfg, seed=1, return_aux=True),
+        clear_on=(PT, "_adaptive_select"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with finish_marks() as marks:
+        kernels.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        img, aux = B.render_image(pack, cam, cfg, seed=1, return_aux=True)
+        torch.cuda.synchronize()
+        t_call = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    img = img.cpu()
+    sc, drops = aux["sample_count"], aux["dropped_lanes"]
+    k_sel = int(800 * 600 * cfg.adaptive_fraction)
+    check(tuple(img.shape) == (600, 800, 3), "finish: image shape")
+    check(bool(torch.isfinite(img).all()), "finish: image not finite")
+    check(float(img.std()) > 1e-3, "finish: image is constant")
+    check(not any(drops.values()), f"finish: dropped lanes {drops}")
+    check(int((sc == 1 + cfg.adaptive_spp).sum()) == k_sel
+          and int((sc == 1).sum()) == 800 * 600 - k_sel,
+          f"finish: sample counts {np.unique(sc, return_counts=True)}")
+    hit = aux["zbuffer"] < 1e30
+    check(0 < hit.mean() < 1 and np.isfinite(aux["zbuffer"][hit]).all(),
+          "finish: z-buffer")
+    check(bool(np.abs(aux["normal"][hit]).sum(-1).min() > 0.5),
+          "finish: first-hit normals")
+    model = B.load_pretrained(device=dev)
+    den_in = (torch.rand((600, 800, 3), device=dev),
+              torch.rand((600, 800, 6), device=dev))
+    res = dict(
+        size="800x600", base_ms=(marks["select"] - t0) * 1e3,
+        select_ms=(marks["adaptive"] - marks["select"]) * 1e3,
+        adaptive_ms=(marks["denoise"] - marks["adaptive"]) * 1e3,
+        denoise_ms=(marks["denoised"] - marks["denoise"]) * 1e3,
+        call_s=t_call, escalations=marks["escalations"],
+        adaptive_pixels=k_sel,
+        adaptive_chunk=min(cfg.chunk_rays, -(-k_sel // 1024) * 1024),
+        segments=aux["traced_segments"], drops=drops,
+        peak_memory_gib=peak / 2 ** 30, image_mean=float(img.mean()),
+        denoise_events_ms=cuda_ms(lambda: B.denoise(model, *den_in), 5),
+        denoiser=denoiser_bound(model, 600, 800))
+    return res, launches, rec
+
+
+def finish_vs_cpu(dev):
+    """The finished render on the card against the CPU at FINISH_SIZE
+    (FINISH_SMALL: 2 adaptive samples on 15% of the pixels): the bench
+    scene, and the tiny scene with a photon map built on the card and
+    carried to the CPU. Sample counts and z-buffer hits equal, z within
+    1e-4 (relative and absolute), radiance and the denoised image (the
+    same render with the shipped denoiser, TF32 off) within 1e-4 on >= 99%
+    of pixels."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    import bhraytracer_tpu_torch as B
+    from bhraytracer_tpu_torch.models.photonmap import build_photon_map
+    from bhraytracer_tpu_torch.scenes import bench_scene, tiny_scene
+
+    w, h = FINISH_SIZE
+    res = {}
+    for name, fn, cfg_kw in (
+            ("bench", bench_scene, FINISH_SMALL),
+            ("photon", tiny_scene, dict(FINISH_SMALL, use_photon_map=True,
+                                        photon_count=1 << 14))):
+        cfg = B.RenderConfig(**cfg_kw, chunk_rays=w * h)
+        out, pmap = [], None
+        for device in (dev, "cpu"):
+            pack, cam = fn(device)
+            cam.width, cam.height = w, h
+            if cfg.use_photon_map:  # one map, built on the card, for both
+                pmap = (build_photon_map(pack, cfg, seed=0, batch=1 << 16)
+                        if pmap is None else pmap.to(device))
+            img, aux = B.render_image(pack, cam, cfg, seed=0, photon_map=pmap,
+                                      return_aux=True)
+            den = B.render_image(pack, cam, dataclasses.replace(
+                cfg, use_denoiser=True), seed=0, photon_map=pmap)
+            out.append((img.cpu(), aux, den.cpu()))
+        (g, ga, gd), (c, ca, cd) = out
+        check(bool(torch.isfinite(g).all() and torch.isfinite(gd).all()),
+              f"finish {name}: card image not finite")
+        check(bool((ga["sample_count"] == ca["sample_count"]).all()),
+              f"finish {name}: sample counts differ")
+        hg, hc = ga["zbuffer"] < 1e30, ca["zbuffer"] < 1e30
+        check(bool((hg == hc).all()), f"finish {name}: z-buffer hits differ")
+        dz = np.abs(ga["zbuffer"][hg] - ca["zbuffer"][hg])
+        check(bool((dz <= 1e-4 * (1 + np.abs(ca["zbuffer"][hg]))).all()),
+              f"finish {name}: z-buffer {dz.max():.3g} off")
+        within = float(((g - c).abs().amax(-1) <= 1e-4).float().mean())
+        dwithin = float(((gd - cd).abs().amax(-1) <= 1e-4).float().mean())
+        res[name] = dict(
+            size=f"{w}x{h}", adaptive_pixels=int((ga["sample_count"] > 1)
+                                                 .sum()),
+            z_max_abs_err=float(dz.max()), radiance_within_1e4=within,
+            radiance_max_abs_err=float((g - c).abs().max()),
+            denoised_within_1e4=dwithin,
+            denoised_max_abs_err=float((gd - cd).abs().max()),
+            segs_gpu=ga["traced_segments"], segs_cpu=ca["traced_segments"])
+        check(within >= 0.99, f"finish {name}: card vs CPU radiance "
+              f"{within:.4f} within 1e-4")
+        check(dwithin >= 0.99, f"finish {name}: card vs CPU denoised "
+              f"{dwithin:.4f} within 1e-4")
+    return res
+
+
+def cli_render(card):
+    """`python -m bhraytracer_tpu_torch render` of data/textured.xml at
+    800x600 (1 sample, 2 adaptive samples, the z-buffer, a checkpoint) as
+    a child process, twice: each exits 0 and writes both PNGs, and the
+    second, resuming the finished checkpoint, writes the same bytes."""
+    import shutil
+
+    out = os.path.join(REPO, "build", "cli_smoke")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    png, zpng = os.path.join(out, "out.png"), os.path.join(out, "z.png")
+    cmd = [sys.executable, "-m", "bhraytracer_tpu_torch", "render",
+           "bhraytracer_tpu_torch/data/textured.xml", "--resource-root",
+           "assets", "--width", "800", "--height", "600", "--spp", "1",
+           "--adaptive", "2", "--zbuffer", zpng, "--checkpoint",
+           os.path.join(out, "ck"), "-o", png]
+    runs = []
+    for i in range(2):
+        t0 = time.perf_counter()
+        r = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                           timeout=600)
+        wall = time.perf_counter() - t0
+        check(r.returncode == 0, f"cli run {i}: exit {r.returncode}: "
+              f"{r.stderr[-2000:]}")
+        for f in (png, zpng):
+            check(os.path.getsize(f) > 0, f"cli run {i}: {f} not written")
+        with open(png, "rb") as f, open(zpng, "rb") as g:
+            runs.append(dict(wall_s=wall, png=f.read(), z=g.read(),
+                             stdout=r.stdout.strip().splitlines()))
+            os.remove(png)
+            os.remove(zpng)
+    check(runs[0]["png"] == runs[1]["png"] and runs[0]["z"] == runs[1]["z"],
+          "cli: the resumed render wrote other bytes")
+    return dict(cmd=" ".join(cmd[1:]), card=card,
+                **{f"run{i}": dict(wall_s=r["wall_s"], stdout=r["stdout"])
+                   for i, r in enumerate(runs)},
+                png_bytes=len(runs[0]["png"]))
+
+
+def finish_phase(dev, card, per_kernel):
+    """The finished render's three checks (finish_main_path and its trace
+    calls, kernels 1, 2, 4 and 5 on every call of its adaptive pass;
+    finish_vs_cpu; cli_render). Returns (results, launches)."""
+    from bhraytracer_tpu_torch.scenes import bench_scene
+
+    pack, cam = bench_scene(dev)
+    res, launches, rec = finish_main_path(pack, cam, dev)
+    print(f"main path finish 800x600 ({card}): base pass "
+          f"{res['base_ms']:.1f} ms, selection {res['select_ms']:.1f} ms, "
+          f"adaptive pass ({res['adaptive_pixels']} pixels x 4 samples, "
+          f"{res['adaptive_chunk']}-lane chunks) {res['adaptive_ms']:.1f} "
+          f"ms, denoise {res['denoise_ms']:.1f} ms (alone "
+          f"{res['denoise_events_ms']:.2f} ms, bound "
+          f"{res['denoiser']['bound_ms']:.3f} ms by "
+          f"{res['denoiser']['bound_by']}, "
+          f"{res['denoiser']['gflop']:.1f} GFLOP), call {res['call_s']:.3f} "
+          f"s, escalations {res['escalations']}, drops {res['drops']}, "
+          "peak device memory "
+          f"{res['peak_memory_gib']:.2f} GiB")
+    print("launches finish:", json.dumps(launches))
+    for k in FLAT + BVH + ("bhrt_shade_setup",):
+        check(launches.get(k, 0) > 0, f"{k} not launched by the finished "
+              "render")
+    for k in HBM + ANALYTIC + ("bhrt_photon_sweep",):
+        check(launches.get(k, 0) == 0, f"{k} launched by the finished render")
+    frame_call_checks(per_kernel, pack, dev, rec, "adaptive")
+    del rec
+    print_frame_calls(per_kernel, "adaptive", "the finished render's "
+                      "adaptive pass, 4 samples of 72,704 lanes")
+    res["vs_cpu"] = finish_vs_cpu(dev)
+    print(f"finished render, card vs CPU {FINISH_SIZE[0]}x{FINISH_SIZE[1]}:",
+          json.dumps(res["vs_cpu"]))
+    res["cli"] = cli_render(card)
+    print("command line, textured.xml 800x600, twice on one checkpoint:",
+          json.dumps(res["cli"]))
+    return res, launches
+
+
 def frame_inputs(name, dev):
     """(pack, camera at 800x600, config, render_image keywords) of a main
     path; the photon path's keywords carry a map built for it (seed 1, as
@@ -2927,6 +3239,14 @@ def main() -> int:
     if "--inverse" in args:
         inverse_alone(dev, card)
         return 0
+    if "--finish" in args:
+        per_kernel = {k: dict(max_abs_err=0.0, lanes_compared=0,
+                              walk_lanes=0) for k in FLAT + BVH}
+        res, launches = finish_phase(dev, card, per_kernel)
+        print(json.dumps({"finish": res, "launches": launches,
+                          "calls": {k: per_kernel[k] for k in per_kernel},
+                          "card": card}))
+        return 0
     if "--textured-gradient" in args:
         print(json.dumps({"textured_gradient": textured_gradient(dev),
                           "card": card}))
@@ -3141,6 +3461,10 @@ def main() -> int:
     grads = gradients_vs_cpu(dev, pmap)
     print(f"gradients on the card vs the CPU (|g_gpu - g_cpu| <= {GRAD_RTOL} "
           f"max|g_cpu| + {GRAD_ATOL}):", json.dumps(grads))
+
+    # The finished render: adaptive pass, aux outputs, denoiser, and the
+    # command line.
+    paths["finish"], launches["finish"] = finish_phase(dev, card, per_kernel)
 
     tiny_cam.width, tiny_cam.height = 800, 600
     timg = B.render_image(tiny_pack, tiny_cam, render_config(HEADLINE))

@@ -310,10 +310,10 @@ def test_traces_are_detached():
     assert resolve_hit(s.pack, o, d, hit).p.requires_grad
 
 
-def test_render_image_differentiable():
+def test_render_image_differentiable(tmp_path):
     """render_image renders a differentiable config forward (unfused, as
-    the JAX package) like the default one; the other four options are still
-    refused."""
+    the JAX package) like the default one, and with the other four options
+    (adaptive sampling, depth of field, the denoiser, a checkpoint)."""
     pack, cam = scenes.gradient_scene("cpu")
     cam.width, cam.height = 16, 12
     kw = dict(spp=1, gi_bounces=1, extra_refr_levels=0, tir_bounces=2,
@@ -324,12 +324,15 @@ def test_render_image_differentiable():
     assert img.shape == (12, 16, 3) and bool(torch.isfinite(img).all())
     assert st.drop_refr == st.drop_tir == st.drop_gi == 0
     assert float((img - ref).abs().amax(-1).le(1e-4).float().mean()) >= 0.99
-    for bad in (dict(use_denoiser=True), dict(use_dof=True),
-                dict(adaptive_spp=2)):
-        with pytest.raises(NotImplementedError):
-            render_image(pack, cam, RenderConfig(**kw, **bad))
-    with pytest.raises(NotImplementedError):
-        render_image(pack, cam, RenderConfig(**kw), checkpoint_dir="ck")
+    cfg = RenderConfig(**kw, differentiable=True, adaptive_spp=2,
+                       use_dof=True, use_denoiser=True)
+    ck = str(tmp_path / "ck")
+    img, aux = render_image(pack, cam, cfg, return_aux=True,
+                            checkpoint_dir=ck)
+    assert img.shape == (12, 16, 3) and bool(torch.isfinite(img).all())
+    assert set(np.unique(aux["sample_count"])) == {1, 3}
+    again = render_image(pack, cam, cfg, checkpoint_dir=ck)  # resumed
+    assert torch.equal(again, img)
 
 
 def test_photon_map_built_without_graph():

@@ -17,6 +17,10 @@ def test_import_leaves_jax_out():
     code = ("import sys\n"
             "import bhraytracer_tpu_torch, bhraytracer_tpu_torch.scenes\n"
             "import bhraytracer_tpu_torch.ops.kernels\n"
+            "import bhraytracer_tpu_torch.cli, bhraytracer_tpu_torch.io.photon_dat\n"
+            "import bhraytracer_tpu_torch.models.denoiser\n"
+            "import bhraytracer_tpu_torch.utils.checkpoint\n"
+            "import bhraytracer_tpu_torch.utils.liveview\n"
             "assert 'jax' not in sys.modules, 'jax imported'\n"
             "assert 'bhraytracer_tpu' not in sys.modules\n")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,

@@ -138,15 +138,16 @@ def test_trace_route_matches_reference(name):
 
 
 def test_render_refuses_what_is_not_ported():
-    # differentiable renders (tests/test_torch_gradients.py); the other four
-    # options are still refused.
-    pack, cam = port_pack("tiny"), _camera("tiny")
+    # Every option of the reference's render_image is ported: the
+    # denoiser, depth of field, adaptive sampling and checkpoints
+    # (tests/test_torch_adaptive.py, tests/test_torch_denoiser.py), and
+    # differentiable renders (tests/test_torch_gradients.py); each renders.
+    pack = port_pack("tiny")
+    cam = dataclasses.replace(_camera("tiny"), width=8, height=6)
     for kw in (dict(use_denoiser=True), dict(use_dof=True),
                dict(adaptive_spp=4)):
-        with pytest.raises(NotImplementedError):
-            render_image(pack, cam, RenderConfig(**kw))
-    with pytest.raises(NotImplementedError):
-        render_image(pack, cam, checkpoint_dir="ckpt")
+        img = render_image(pack, cam, RenderConfig(**CFG["tiny"], **kw))
+        assert img.shape == (6, 8, 3) and bool(torch.isfinite(img).all())
     # A tree deeper than the BVH kernels' per-ray stack is refused; any
     # face count is taken, and texture maps are rendered
     # (tests/test_torch_textured_render.py).
