@@ -56,10 +56,24 @@ trace call of its adaptive pass), the same with 2 adaptive samples at
 radiance, z-buffer, sample counts and the denoised image), and the
 command line (`python -m bhraytracer_tpu_torch render` of the textured
 scene at 800x600 with 2 adaptive samples, a z-buffer and a checkpoint,
-twice: the resumed run writes the same bytes); and prints the card, the
-numbers and one JSON line per result. The last line is the device line. Any failed
-check raises and the script exits non-zero; so does a run without a CUDA
-card or outside a checkout.
+twice: the resumed run writes the same bytes); runs the data-parallel
+path (parallel/): a world of one rank over NCCL in this process
+(init_multihost with a local coordinator, make_mesh) renders the bench
+scene at 800x600 with HEADLINE through render_image_distributed (timed
+against render_image, launch counts, peak memory; kernels 1, 2, 4 and 5
+against their twins on every trace call of the frame and kernel 3 on
+every shade setup) and takes one train_step_sharded of the inverse path
+at 1024x1024 (timed against train_step), with the all-gather's and the
+all-reduce's times and the dryrun_multichip counterpart on tiny_scene;
+then a world of two child processes sharing the card over gloo (their
+gathered radiance of the frame equal to one process's render of each half
+with the same folded keys, their reduced gradients within GRAD_RTOL /
+GRAD_ATOL of the sum of the halves' gradients) and, beside it, a world of
+two over gloo on the CPU (the 64x48 image of the card's world within 1e-4
+on 99% of pixels, stats equal); and prints the card, the numbers and one
+JSON line per result. The last line is the device line. Any failed check,
+a child rank's included, raises and the script exits non-zero; so does a
+run without a CUDA card or outside a checkout.
 
     python3 chip_smoke.py --profile [bench] [bigmesh] [photon] [textured]
                                     [textured32]
@@ -93,6 +107,13 @@ comparisons of the default run.
 builds the kernels and runs only the finished render's three checks of
 the default run (800x600 with its trace calls, card against CPU, the
 command line).
+
+    python3 chip_smoke.py --distributed
+
+builds the kernels and runs only the data-parallel phase of the default
+run (world 1 over NCCL, world 2 on the card and on the CPU over gloo).
+Its world-2 ranks are this script run as `--dist-rank RANK WORLD ADDRESS
+DEVICE OUT`, a mode for the phase alone.
 
     python3 chip_smoke.py --textured-gradient
 
@@ -179,6 +200,18 @@ FINISH_SIZE = (64, 48)
 # the smallest nonzero gradient (the atlas's, 5.6e-6 at most), so the
 # relative term decides; measured (H100): 3.0e-5 of max|g| at worst.
 GRAD_RTOL, GRAD_ATOL = 1e-3, 1e-9
+# The distributed phase (parallel/): world 1 over NCCL in this process;
+# world DIST_WORLD as child processes sharing the one card over gloo (NCCL
+# refuses two ranks on one GPU, and the two time-slice the card: their
+# walls are correctness runs, not scaling) and the same over gloo on the
+# CPU. DRYRUN is __graft_entry__.dryrun_multichip's config
+# (__graft_entry__.py:126-129), DRYRUN_LANES its lanes a rank; the
+# collectives are timed over COLLECTIVE_REPS calls.
+DIST_WORLD = 2
+DRYRUN = dict(spp=1, gi_bounces=1, extra_refr_levels=0, tir_bounces=2,
+              chunk_rays=64, texture_sample_count=1, differentiable=True)
+DRYRUN_LANES = 16
+COLLECTIVE_REPS = 20
 # name -> (scene function of bhraytracer_tpu_torch.scenes, config)
 PATHS = {"bench": ("bench_scene", HEADLINE),
          "bigmesh": ("bigmesh_scene", BIGMESH),
@@ -653,11 +686,35 @@ def compare_stream(pack, tiny, cam, dev):
     return out
 
 
+def shade_call_check(args, what: str):
+    """Kernel 3 (`shade_lanes`) against its twin on one call's arguments:
+    the discrete outputs (mtl, gate, rr0) equal on every lane, the floats
+    within 1e-5 on the shaded lanes (miss lanes carry junk every consumer
+    masks). Returns (kernel outputs, largest float difference)."""
+    import torch
+
+    from bhraytracer_tpu_torch.ops import shade as S
+
+    k = S.shade_lanes(*args)
+    r = S.shade_setup_ref(*args)
+    for name in ("mtl", "gate", "rr0"):
+        bad = int((getattr(k, name) != getattr(r, name)).sum())
+        check(bad == 0, f"{what}: shade_setup {name} differs on {bad} lanes")
+    shade, n = args[6], args[0].shape[0]
+    fields = [f for f in S.ShadeSetup._fields if f not in ("mtl", "gate",
+                                                           "rr0")]
+    fk = torch.cat([getattr(k, f).reshape(n, -1)[shade] for f in fields], 1)
+    fr = torch.cat([getattr(r, f).reshape(n, -1)[shade] for f in fields], 1)
+    close = torch.isclose(fk, fr, rtol=1e-5, atol=1e-5)
+    bad = int((~close.all(1)).sum())
+    check(bad == 0, f"{what}: shade_setup {bad} shaded lanes beyond 1e-5")
+    return k, float((fk - fr).abs().max()) if fk.numel() else 0.0
+
+
 def compare_shade(pack, cam, dev):
-    """Kernel 3 against its twin at 480,000 lanes: the discrete outputs on
-    every lane, the floats on the shaded lanes; with its device time and
-    the launches of one fused shade step (shade setup, shadow trace and
-    visibility fold)."""
+    """Kernel 3 against its twin at 480,000 lanes (shade_call_check); with
+    its device time and the launches of one fused shade step (shade setup,
+    shadow trace and visibility fold)."""
     import torch
 
     from bhraytracer_tpu_torch.models import pathtracer as PT
@@ -668,26 +725,11 @@ def compare_shade(pack, cam, dev):
     args = (o, d, hit.kind, hit.inst, hit.face, hit.front, shade, u_tab,
             pack.resolve_rows, inst, pack.n_sph, pack.n_pln, pack.n_msh, mtl,
             light, cfg.bias)
-    k = S.shade_lanes(*args)
-    r = S.shade_setup_ref(*args)
     check(bool(shade.sum() > LANES // 4), "shade_setup: too few shaded lanes")
-    # Discrete outputs (mtl, gate, rr0) on every lane; float outputs on the
-    # shaded lanes (miss lanes carry junk every consumer masks).
-    for name in ("mtl", "gate", "rr0"):
-        bad = int((getattr(k, name) != getattr(r, name)).sum())
-        check(bad == 0, f"shade_setup: {name} differs on {bad} lanes")
-    fields = [f for f in S.ShadeSetup._fields if f not in ("mtl", "gate",
-                                                           "rr0")]
-    fk = torch.cat([getattr(k, f).reshape(LANES, -1)[shade] for f in fields],
-                   1)
-    fr = torch.cat([getattr(r, f).reshape(LANES, -1)[shade] for f in fields],
-                   1)
-    close = torch.isclose(fk, fr, rtol=1e-5, atol=1e-5)
-    bad = int((~close.all(1)).sum())
-    check(bad == 0, f"shade_setup: {bad} shaded lanes beyond 1e-5")
+    k, err = shade_call_check(args, "level 0")
     tensors = [a for a in args if isinstance(a, torch.Tensor)]
     return {"bhrt_shade_setup": dict(
-        max_abs_err=float((fk - fr).abs().max()), lanes_compared=LANES,
+        max_abs_err=err, lanes_compared=LANES,
         ms=cuda_ms(lambda: S.shade_lanes(*args), 5),
         device_ms=device_ms(lambda: S.shade_lanes(*args), 5,
                             ("shade_kernel",)),
@@ -2715,11 +2757,6 @@ def mean_radiance_grads(pack, cam, cfg_kw, width, height, seed, wrt=None,
     default)."""
     import torch
 
-    def clock():
-        if pack.device.type == "cuda":
-            torch.cuda.synchronize()
-        return time.perf_counter()
-
     from bhraytracer_tpu_torch.models.pathtracer import _pixels, _render_chunk
     from bhraytracer_tpu_torch.ops import rng
     from bhraytracer_tpu_torch.ops.camera import from_scene_camera
@@ -2739,13 +2776,13 @@ def mean_radiance_grads(pack, cam, cfg_kw, width, height, seed, wrt=None,
               for k, v in params.items()}
     pk, cm = _apply_params(pack, cam_p, leaves)
     px, py = _pixels(width, height, n, 0, dev)
-    t0 = clock()
+    t0 = clock(dev)
     rad, _, st = _render_chunk(pk, cfg, cm, width, height, px, py,
                                rng.prng_key(seed, dev), pmap)
-    t1 = clock()
+    t1 = clock(dev)
     gs = torch.autograd.grad(rad.mean(), [leaves[k] for k in wrt],
                              allow_unused=True)
-    t2 = clock()
+    t2 = clock(dev)
     grads = {k: (torch.zeros_like(leaves[k]) if g is None else g).cpu()
              for k, g in zip(wrt, gs)}
     return (rad.detach().cpu(), [int(x) for x in st], grads,
@@ -2878,38 +2915,20 @@ def inverse_main_path(dev):
     import numpy as np
     import torch
 
-    from bhraytracer_tpu_torch.models.pathtracer import _pixels, _render_chunk
-    from bhraytracer_tpu_torch.ops import kernels, rng
-    from bhraytracer_tpu_torch.ops.camera import from_scene_camera
+    from bhraytracer_tpu_torch.models.pathtracer import _render_chunk
+    from bhraytracer_tpu_torch.ops import kernels
     from bhraytracer_tpu_torch.parallel.sharding import (
         _apply_params,
         loss_and_grads,
-        trainable_params,
     )
-    from bhraytracer_tpu_torch.scenes import bench_scene
 
-    w = h = INVERSE_SIZE
+    inv = inverse_inputs(dev)
+    pack, cfg, cam_p, w, h, px, py, key, target, params = (
+        inv[k] for k in ("pack", "cfg", "cam", "w", "h", "px", "py", "key",
+                         "target", "params"))
     n = w * h
-    pack, cam = bench_scene(dev)
-    cfg = render_config(dict(INVERSE, chunk_rays=n))
-    cam_p = from_scene_camera(cam, dev)
-    px, py = _pixels(w, h, n, 0, dev)
-    key = rng.prng_key(0, dev)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with torch.no_grad():
-        target, _, st = _render_chunk(pack, cfg, cam_p, w, h, px, py, key)
-    torch.cuda.synchronize()
-    t_target = time.perf_counter() - t0
-    check(bool(torch.isfinite(target).all()), "inverse: target not finite")
-    check(int(st.drop_refr) == int(st.drop_tir) == int(st.drop_gi) == 0,
-          f"inverse: target dropped lanes {[int(x) for x in st]}")
     true_d = pack.mtl_diffuse.cpu().numpy()
-    g = np.random.default_rng(0)
-    d0 = np.clip(true_d + g.uniform(-0.35, 0.35, true_d.shape), 0.02,
-                 0.98).astype(np.float32)
-    params = dict(trainable_params(pack, cam_p, include_geometry=True),
-                  mtl_diffuse=torch.from_numpy(d0).to(dev))
+    d0 = params["mtl_diffuse"].cpu().numpy()
 
     def forward():
         leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
@@ -2986,7 +3005,7 @@ def inverse_main_path(dev):
     # inputs), recorded last so that their copies weigh on no time or peak.
     rec = record_trace_calls(forward)
     res = dict(size=f"{w}x{h}", lanes=n, segments=int(stats.segments),
-               target_ms=t_target * 1e3, forward_ms=t_fwd * 1e3,
+               target_ms=inv["target_ms"], forward_ms=t_fwd * 1e3,
                backward_ms=t_bwd * 1e3, value_and_grad_loss=loss0,
                forward_profiled=fwd_prof, backward_profiled=bwd_prof,
                peak_memory_gib=peak / 2 ** 30, drops=drops,
@@ -3187,6 +3206,538 @@ def time_frames(dev, card, n: int, names):
                               "segments": st.segments}))
 
 
+# ---------------------------------------------------------------------------
+# the distributed phase: data parallelism over torch.distributed
+# ---------------------------------------------------------------------------
+
+
+def free_address() -> str:
+    """127.0.0.1:<a free port>, a group's rendezvous."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return f"127.0.0.1:{s.getsockname()[1]}"
+
+
+def clock(dev) -> float:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return time.perf_counter()
+
+
+@contextlib.contextmanager
+def recorded_shade_calls(calls):
+    """Within the block, each `ops/shade.shade_lanes` call appends its
+    arguments (tensors cloned) to `calls`."""
+    import torch
+
+    from bhraytracer_tpu_torch.ops import shade as S
+
+    real = S.shade_lanes
+
+    def rec(*args):
+        calls.append(tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                           for a in args))
+        return real(*args)
+
+    S.shade_lanes = rec
+    try:
+        yield calls
+    finally:
+        S.shade_lanes = real
+
+
+def dryrun_multichip(mesh, dev) -> dict:
+    """__graft_entry__.dryrun_multichip's counterpart (__graft_entry__.py:
+    96-154): one sharded forward and one train_step_sharded on tiny_scene,
+    DRYRUN_LANES lanes a rank spread over the image, a zero target; the
+    radiance and the loss finite."""
+    import numpy as np
+    import torch
+
+    from bhraytracer_tpu_torch.ops import rng
+    from bhraytracer_tpu_torch.ops.camera import from_scene_camera
+    from bhraytracer_tpu_torch.parallel import (
+        render_radiance_sharded,
+        train_step_sharded,
+    )
+    from bhraytracer_tpu_torch.parallel.sharding import trainable_params
+    from bhraytracer_tpu_torch.scenes import tiny_scene
+
+    pack, cam = tiny_scene(dev)
+    cfg = render_config(DRYRUN)
+    cam_p = from_scene_camera(cam, dev)
+    w, h = cam.width, cam.height
+    n = DRYRUN_LANES * mesh.size()
+    idx = torch.from_numpy(np.linspace(0, w * h - 1, n).astype(np.int64)).to(
+        dev)
+    key = rng.prng_key(0, dev)
+    rad = render_radiance_sharded(pack, cfg, cam_p, w, h, idx % w, idx // w,
+                                  key, mesh)
+    new, _, loss = train_step_sharded(
+        trainable_params(pack, cam_p), None, pack, cfg, cam_p, w, h, idx % w,
+        idx // w, torch.zeros((n, 3), device=dev), key, mesh)
+    check(tuple(rad.shape) == (n, 3) and bool(torch.isfinite(rad).all()),
+          "dryrun: sharded radiance")
+    check(bool(torch.isfinite(loss)), "dryrun: non-finite loss")
+    check(all(bool(torch.isfinite(v).all()) for v in new.values()),
+          "dryrun: non-finite parameters")
+    return dict(lanes=n, loss=float(loss))
+
+
+def collective_times(mesh, dev, shard_shape, reduce_numel: int) -> dict:
+    """Wall ms (host clock, each call ending in a synchronise; mean of
+    COLLECTIVE_REPS after one warm call) of one all_gather_into_tensor of
+    float32 shards of `shard_shape` and of one all_reduce of
+    `reduce_numel` float32, the shapes of render_radiance_sharded's
+    gather and train_step_sharded's reduce; with their bytes (the gathered
+    tensor, the reduced buffer)."""
+    import torch
+    import torch.distributed as dist
+
+    group = mesh.get_group("dp")
+    x = torch.rand(shard_shape, device=dev)
+    out = x.new_empty((mesh.size() * shard_shape[0], *shard_shape[1:]))
+    buf = torch.rand(reduce_numel, device=dev)
+
+    def wall_ms(fn):
+        fn()
+        t0 = clock(dev)
+        for _ in range(COLLECTIVE_REPS):
+            fn()
+            clock(dev)
+        return (time.perf_counter() - t0) / COLLECTIVE_REPS * 1e3
+
+    return dict(
+        all_gather_ms=wall_ms(
+            lambda: dist.all_gather_into_tensor(out, x, group=group)),
+        all_gather_bytes=out.numel() * 4,
+        all_reduce_ms=wall_ms(lambda: dist.all_reduce(buf, group=group)),
+        all_reduce_bytes=buf.numel() * 4)
+
+
+def inverse_inputs(dev):
+    """The inverse path's inputs: the bench scene, its camera, INVERSE at
+    INVERSE_SIZE^2 in one chunk, the lanes and key 0, the target from the
+    true tables (finite, no lane dropped; its render's ms), and
+    trainable_params with geometry, mtl_diffuse perturbed (seed 0,
+    +-0.35, clipped to [0.02, 0.98])."""
+    import numpy as np
+    import torch
+
+    from bhraytracer_tpu_torch.models.pathtracer import _pixels, _render_chunk
+    from bhraytracer_tpu_torch.ops import rng
+    from bhraytracer_tpu_torch.ops.camera import from_scene_camera
+    from bhraytracer_tpu_torch.parallel.sharding import trainable_params
+    from bhraytracer_tpu_torch.scenes import bench_scene
+
+    w = h = INVERSE_SIZE
+    pack, cam = bench_scene(dev)
+    cfg = render_config(dict(INVERSE, chunk_rays=w * h))
+    cam_p = from_scene_camera(cam, dev)
+    px, py = _pixels(w, h, w * h, 0, dev)
+    key = rng.prng_key(0, dev)
+    t0 = clock(dev)
+    with torch.no_grad():
+        target, _, st = _render_chunk(pack, cfg, cam_p, w, h, px, py, key)
+    target_ms = (clock(dev) - t0) * 1e3
+    check(bool(torch.isfinite(target).all()), "inverse: target not finite")
+    check(int(st.drop_refr) == int(st.drop_tir) == int(st.drop_gi) == 0,
+          f"inverse: target dropped lanes {[int(x) for x in st]}")
+    true_d = pack.mtl_diffuse.cpu().numpy()
+    d0 = np.clip(true_d + np.random.default_rng(0).uniform(
+        -0.35, 0.35, true_d.shape), 0.02, 0.98).astype(np.float32)
+    params = dict(trainable_params(pack, cam_p, include_geometry=True),
+                  mtl_diffuse=torch.from_numpy(d0).to(dev))
+    return dict(pack=pack, cfg=cfg, cam=cam_p, w=w, h=h, px=px, py=py,
+                key=key, target=target, params=params, target_ms=target_ms)
+
+
+def frame_lanes(dev, seed: int = 1):
+    """The 800x600 frame's 480,000 lanes and render_image_distributed's key
+    of its one chunk's first sample at `seed` (HEADLINE: one chunk)."""
+    import torch
+
+    from bhraytracer_tpu_torch.ops import rng
+
+    w, h = 800, 600
+    idx = torch.arange(w * h, device=dev)
+    return idx % w, idx // w, rng.fold_in(rng.fold_in(
+        rng.prng_key(seed, dev), 0), 0)
+
+
+def dist_small_render(mesh, dev):
+    """render_image_distributed of the bench scene at FINISH_SIZE with
+    SMALL, one chunk, seed 0: (image on the host, ChunkStats as a list)."""
+    from bhraytracer_tpu_torch.parallel import render_image_distributed
+    from bhraytracer_tpu_torch.scenes import bench_scene
+
+    w, h = FINISH_SIZE
+    pack, cam = bench_scene(dev)
+    cam.width, cam.height = w, h
+    img, st = render_image_distributed(
+        pack, cam, render_config(dict(SMALL, chunk_rays=w * h)), mesh, seed=0,
+        return_stats=True)
+    return img.cpu(), list(st)
+
+
+def dist_rank(args) -> int:
+    """--dist-rank RANK WORLD ADDRESS DEVICE OUT: one rank of the
+    distributed phase's world-2 runs, a child process of it. On a card
+    (gloo, the two ranks sharing it): the 800x600 HEADLINE frame through
+    render_image_distributed (warm, then timed) with the peak memory, the
+    gathered radiance of that frame's lanes (render_radiance_sharded), the
+    reduced gradients of a sharded INVERSE step at INVERSE_SIZE^2 on the
+    parent's target and parameters (OUT/inputs.pt) and the step's wall,
+    the collectives' times; on either device the FINISH_SIZE render and
+    the dryrun. Writes OUT/rank<RANK>.pt."""
+    import torch
+
+    from bhraytracer_tpu_torch.ops.camera import from_scene_camera
+    from bhraytracer_tpu_torch.parallel import (
+        init_multihost,
+        make_mesh,
+        render_image_distributed,
+        render_radiance_sharded,
+        shutdown,
+        train_step_sharded,
+    )
+    from bhraytracer_tpu_torch.parallel.sharding import loss_and_grads_sharded
+    from bhraytracer_tpu_torch.scenes import bench_scene
+
+    rank, world, addr, device, out = (int(args[0]), int(args[1]), args[2],
+                                      args[3], args[4])
+    dev = torch.device(device)
+    if dev.type == "cpu":
+        torch.set_num_threads(2)
+    check(init_multihost(addr, world, rank, device=dev, backend="gloo"),
+          "init_multihost: no group")
+    res = {}
+    try:
+        mesh = make_mesh(device=dev)
+        if dev.type == "cuda":
+            torch.backends.cuda.matmul.allow_tf32 = False
+            pack, cam = bench_scene(dev)
+            cam.width, cam.height = 800, 600
+            cfg = render_config(HEADLINE)
+            render_image_distributed(pack, cam, cfg, mesh, seed=0)
+            torch.cuda.reset_peak_memory_stats()
+            t0 = clock(dev)
+            img, st = render_image_distributed(pack, cam, cfg, mesh, seed=1,
+                                               return_stats=True)
+            res["frame_wall_s"] = clock(dev) - t0
+            res["frame_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            check(bool(torch.isfinite(img).all()), "world 2: frame")
+            res["frame_stats"] = list(st)
+            px, py, key = frame_lanes(dev)
+            res["rad"] = render_radiance_sharded(
+                pack, cfg, from_scene_camera(cam, dev), cam.width, cam.height,
+                px, py, key, mesh).cpu()
+
+            inv = inverse_inputs(dev)
+            sent = torch.load(os.path.join(out, "inputs.pt"),
+                              weights_only=True)
+            inv["target"] = sent["target"].to(dev)
+            inv["params"]["mtl_diffuse"] = sent["mtl_diffuse"].to(dev)
+            step_args = [inv[k] for k in ("params", "pack", "cfg", "cam", "w",
+                                          "h", "px", "py", "target", "key")]
+            torch.cuda.reset_peak_memory_stats()
+            loss, grads = loss_and_grads_sharded(*step_args, mesh)
+            res["step_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            res["loss"] = float(loss)
+            res["grads"] = {k: g.cpu() for k, g in grads.items()}
+            t0 = clock(dev)
+            train_step_sharded(*step_args[:1], None, *step_args[1:], mesh,
+                               lr=INVERSE_LR)
+            res["step_wall_s"] = clock(dev) - t0
+            res["collectives"] = collective_times(
+                mesh, dev, (px.shape[0] // world, 3),
+                1 + sum(v.numel() for v in inv["params"].values()))
+        res["small"] = dist_small_render(mesh, dev)
+        res["dryrun"] = dryrun_multichip(mesh, dev)
+    finally:
+        shutdown()
+    torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+    return 0
+
+
+def shard_references(dev, rad_pack, inv):
+    """What one process gets on each half of the world-2 runs, written
+    here apart from parallel/sharding.py: the 800x600 frame's radiance,
+    _render_chunk of each half keyed fold_in(key, r * half); and the sum
+    over the halves of the gradients of sum((rad_r - target_r)**2) /
+    (3 N), each half differentiated on its own."""
+    import torch
+
+    from bhraytracer_tpu_torch.models.pathtracer import _render_chunk
+    from bhraytracer_tpu_torch.ops import rng
+    from bhraytracer_tpu_torch.ops.camera import from_scene_camera
+    from bhraytracer_tpu_torch.parallel.sharding import _apply_params
+
+    pack, cam = rad_pack
+    cfg = render_config(HEADLINE)
+    px, py, key = frame_lanes(dev)
+    half = px.shape[0] // DIST_WORLD
+    cam_p = from_scene_camera(cam, dev)
+    w, h = 800, 600
+    rad = torch.cat([_render_chunk(
+        pack, cfg, cam_p, w, h, px[r * half:(r + 1) * half],
+        py[r * half:(r + 1) * half], rng.fold_in(key, r * half))[0]
+        for r in range(DIST_WORLD)]).cpu()
+
+    n = inv["px"].shape[0]
+    half = n // DIST_WORLD
+    loss, grads = 0.0, {}
+    for r in range(DIST_WORLD):
+        sl = slice(r * half, (r + 1) * half)
+        leaves = {k: v.detach().requires_grad_()
+                  for k, v in inv["params"].items()}
+        pk, cm = _apply_params(inv["pack"], inv["cam"], leaves)
+        out, _, _ = _render_chunk(pk, inv["cfg"], cm, inv["w"], inv["h"],
+                                  inv["px"][sl], inv["py"][sl],
+                                  rng.fold_in(inv["key"], r * half))
+        lv = torch.sum((out - inv["target"][sl]) ** 2) / (3 * n)
+        gs = torch.autograd.grad(lv, list(leaves.values()), allow_unused=True)
+        loss += float(lv.detach())
+        for (k, v), g in zip(leaves.items(), gs):
+            g = torch.zeros_like(v) if g is None else g
+            grads[k] = grads[k] + g if k in grads else g
+    return rad, loss, {k: g.cpu() for k, g in grads.items()}
+
+
+def run_world(world: int, device: str, out: str) -> list:
+    """The world of `world` child ranks (dist_rank) on `device`, started
+    together at one rendezvous: their results, rank by rank, and each
+    rank's wall. Any rank's failure fails the run; every child is stopped
+    before this returns."""
+    import torch
+
+    addr = free_address()
+    t0 = time.perf_counter()
+    logs = [open(os.path.join(out, f"rank{r}.log"), "w")
+            for r in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dist-rank", str(r),
+         str(world), addr, device, out], cwd=REPO, stdout=log)
+        for r, log in enumerate(logs)]
+    try:
+        codes = [p.wait(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    wall = time.perf_counter() - t0
+    check(codes == [0] * world, f"world {world} on {device}: exit codes "
+          f"{codes}")
+    return [dict(torch.load(os.path.join(out, f"rank{r}.pt"),
+                            weights_only=False), process_wall_s=wall)
+            for r in range(world)]
+
+
+def distributed_world1(dev, per_kernel, out):
+    """World 1 over NCCL in this process (init_multihost with a local
+    coordinator, make_mesh): the bench scene at 800x600 with HEADLINE
+    through render_image_distributed (warm, then timed with the launch
+    counters from 0 just before it and read just after, and the device
+    memory's peak) against render_image's wall on the same frame; the
+    trace calls of one more distributed frame (kernels 1, 2, 4 and 5
+    against their twins on every call, frame_call_checks) and its shade
+    setups (kernel 3 on every call, shade_call_check); one
+    train_step_sharded on the inverse path's inputs against train_step's
+    wall, with its launches and peak; the collectives' times; the dryrun.
+    Writes the inverse inputs for the world-2 ranks to out/inputs.pt.
+    Returns (results, launches by path, the frame's pack and camera, the
+    inverse inputs)."""
+    import torch
+    import torch.distributed as dist
+
+    import bhraytracer_tpu_torch as B
+    from bhraytracer_tpu_torch.ops import kernels
+    from bhraytracer_tpu_torch.parallel import (
+        init_multihost,
+        make_mesh,
+        render_image_distributed,
+        shutdown,
+        train_step_sharded,
+    )
+    from bhraytracer_tpu_torch.parallel.sharding import train_step
+    from bhraytracer_tpu_torch.scenes import bench_scene
+
+    check(init_multihost(free_address(), 1, 0), "init_multihost: no group")
+    res, launches = {}, {}
+    try:
+        mesh = make_mesh()
+        check(mesh.size() == 1 and dist.get_backend() == "nccl",
+              f"world 1: {mesh.size()} ranks on {dist.get_backend()}")
+        pack, cam = bench_scene(dev)
+        cam.width, cam.height = 800, 600
+        cfg = render_config(HEADLINE)
+        B.render_image(pack, cam, cfg, seed=0)
+        t0 = clock(dev)
+        B.render_image(pack, cam, cfg, seed=1)
+        res["render_image_wall_s"] = clock(dev) - t0
+        render_image_distributed(pack, cam, cfg, mesh, seed=0)
+        torch.cuda.reset_peak_memory_stats()
+        kernels.LAUNCHES.clear()
+        t0 = clock(dev)
+        img, st = render_image_distributed(pack, cam, cfg, mesh, seed=1,
+                                           return_stats=True)
+        res["frame_wall_s"] = clock(dev) - t0
+        launches["distributed"] = dict(kernels.LAUNCHES)
+        res["frame_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        img = img.cpu()
+        check(tuple(img.shape) == (600, 800, 3), "world 1: image shape")
+        check(bool(torch.isfinite(img).all()) and float(img.std()) > 1e-3,
+              "world 1: image not finite or constant")
+        check(st.drop_refr == st.drop_tir == st.drop_gi == 0,
+              f"world 1: dropped lanes {st}")
+        res.update(segments=st.segments,
+                   segs_per_s=st.segments / res["frame_wall_s"])
+        ld = launches["distributed"]
+        for k in FLAT + BVH + ("bhrt_shade_setup",):
+            check(ld.get(k, 0) > 0, f"{k} not launched by the distributed "
+                  "frame")
+        for k in HBM + ANALYTIC + ("bhrt_photon_sweep",):
+            check(ld.get(k, 0) == 0, f"{k} launched by the distributed frame")
+
+        shades = []
+        with recorded_shade_calls(shades):
+            rec = record_trace_calls(lambda: render_image_distributed(
+                pack, cam, cfg, mesh, seed=1))
+        frame_call_checks(per_kernel, pack, dev, rec, "distributed")
+        del rec
+        errs = [shade_call_check(a, f"distributed shade call {i}")[1]
+                for i, a in enumerate(shades)]
+        k3 = per_kernel["bhrt_shade_setup"]
+        k3.update(max_abs_err=max(k3["max_abs_err"], *errs),
+                  lanes_compared=k3["lanes_compared"]
+                  + sum(a[0].shape[0] for a in shades))
+        res["shade_calls"] = dict(calls=len(shades), max_abs_err=max(errs))
+        del shades
+
+        inv = inverse_inputs(dev)
+        torch.save(dict(target=inv["target"].cpu(),
+                        mtl_diffuse=inv["params"]["mtl_diffuse"].cpu()),
+                   os.path.join(out, "inputs.pt"))
+        args = [inv[k] for k in ("params", "pack", "cfg", "cam", "w", "h",
+                                 "px", "py", "target", "key")]
+        train_step(*args[:1], None, *args[1:], lr=INVERSE_LR)
+        t0 = clock(dev)
+        train_step(*args[:1], None, *args[1:], lr=INVERSE_LR)
+        res["train_step_wall_s"] = clock(dev) - t0
+        train_step_sharded(*args[:1], None, *args[1:], mesh, lr=INVERSE_LR)
+        torch.cuda.reset_peak_memory_stats()
+        kernels.LAUNCHES.clear()
+        t0 = clock(dev)
+        new, _, loss = train_step_sharded(*args[:1], None, *args[1:], mesh,
+                                          lr=INVERSE_LR)
+        res["step_wall_s"] = clock(dev) - t0
+        launches["distributed_step"] = dict(kernels.LAUNCHES)
+        res["step_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        check(bool(torch.isfinite(loss)), "world 1: step loss not finite")
+        check(all(bool(torch.isfinite(v).all()) for v in new.values()),
+              "world 1: step parameters not finite")
+        res["step_loss"] = float(loss)
+        ls = launches["distributed_step"]
+        for k in FLAT + BVH:
+            check(ls.get(k, 0) > 0, f"{k} not launched by the sharded step")
+        res["collectives"] = collective_times(
+            mesh, dev, (800 * 600, 3),
+            1 + sum(v.numel() for v in inv["params"].values()))
+        res["dryrun"] = dryrun_multichip(mesh, dev)
+    finally:
+        shutdown()
+    return res, launches, (pack, cam), inv
+
+
+def distributed_phase(dev, card, per_kernel):
+    """The distributed phase: world 1 (distributed_world1); world 2 on the
+    card (two child processes over gloo) and, at the same time, world 2
+    over gloo on the CPU (two more); the card's gathered radiance equal to
+    one process's render of each half with the same folded keys, its
+    reduced gradients within GRAD_RTOL / GRAD_ATOL of the sum of the
+    halves' gradients, its FINISH_SIZE image against the CPU's (99% of
+    pixels within 1e-4, stats equal). Returns (results, launches)."""
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    out = os.path.join(REPO, "build", "dist_smoke")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    res, launches, frame, inv = distributed_world1(dev, per_kernel, out)
+    w1 = res
+    print(f"distributed world 1 (NCCL) 800x600 ({card}): frame "
+          f"{w1['frame_wall_s']:.3f} s against render_image's "
+          f"{w1['render_image_wall_s']:.3f} s, {w1['segs_per_s']:.0f} segs/s, "
+          f"peak {w1['frame_peak_gib']:.2f} GiB; step "
+          f"{INVERSE_SIZE}x{INVERSE_SIZE} {w1['step_wall_s']:.3f} s against "
+          f"train_step's {w1['train_step_wall_s']:.3f} s, peak "
+          f"{w1['step_peak_gib']:.2f} GiB; collectives "
+          f"{json.dumps(w1['collectives'])}")
+    print("launches distributed:", json.dumps(launches))
+    print_frame_calls(per_kernel, "distributed", "world 1's 800x600 "
+                      "HEADLINE frame through render_image_distributed")
+    torch.cuda.empty_cache()
+
+    cpu_out = os.path.join(out, "cpu")
+    os.makedirs(cpu_out)
+    with ThreadPoolExecutor(2) as pool:
+        cpu_world = pool.submit(run_world, DIST_WORLD, "cpu", cpu_out)
+        card_world = pool.submit(run_world, DIST_WORLD, "cuda:0", out)
+        ranks, cpu_ranks = card_world.result(), cpu_world.result()
+
+    r0 = ranks[0]
+    for r in ranks[1:]:
+        check(torch.equal(r["rad"], r0["rad"]) and r["loss"] == r0["loss"]
+              and all(torch.equal(r["grads"][k], g)
+                      for k, g in r0["grads"].items()),
+              "world 2: the ranks hold different results")
+    ref_rad, ref_loss, ref_grads = shard_references(dev, frame, inv)
+    err = float((r0["rad"] - ref_rad).abs().max())
+    check(torch.equal(r0["rad"], ref_rad), "world 2: gathered radiance "
+          f"differs from the halves' by up to {err:.3g}")
+    grads = compare_grads("world 2 gradients", r0["grads"], ref_grads)
+    check(abs(r0["loss"] - ref_loss) <= 1e-5 * abs(ref_loss),
+          f"world 2: loss {r0['loss']} against {ref_loss}")
+
+    (g_img, g_st), (c_img, c_st) = r0["small"], cpu_ranks[0]["small"]
+    within = float(((g_img - c_img).abs().amax(-1) <= 1e-4).float().mean())
+    check(bool(torch.isfinite(g_img).all()), "world 2 small: not finite")
+    check(within >= 0.99, f"world 2 card vs CPU: {within:.4f} of pixels "
+          "within 1e-4")
+    check(g_st == c_st, f"world 2 card vs CPU: stats {g_st} against {c_st}")
+    res["world2"] = dict(
+        ranks=[{k: r[k] for k in ("frame_wall_s", "frame_peak_gib",
+                                  "step_wall_s", "step_peak_gib",
+                                  "process_wall_s", "collectives", "dryrun",
+                                  "frame_stats")} for r in ranks],
+        radiance_max_abs_err=err, loss=r0["loss"], grads=grads,
+        vs_cpu=dict(size=f"{FINISH_SIZE[0]}x{FINISH_SIZE[1]}",
+                    within_1e4=within,
+                    max_abs_err=float((g_img - c_img).abs().max()),
+                    stats_gpu=g_st, stats_cpu=c_st,
+                    cpu_process_wall_s=cpu_ranks[0]["process_wall_s"],
+                    cpu_dryrun=cpu_ranks[0]["dryrun"]))
+    for i, r in enumerate(res["world2"]["ranks"]):
+        print(f"distributed world 2 (gloo, two ranks sharing the card: a "
+              f"correctness run, not scaling) rank {i} ({card}): frame "
+              f"{r['frame_wall_s']:.3f} s, step {r['step_wall_s']:.3f} s, "
+              f"peak {max(r['frame_peak_gib'], r['step_peak_gib']):.2f} GiB, "
+              f"process {r['process_wall_s']:.1f} s; collectives "
+              f"{json.dumps(r['collectives'])}")
+    print(f"distributed world 2 checks ({card}):", json.dumps(
+        {k: v for k, v in res["world2"].items() if k != "ranks"}))
+    return res, launches
+
+
 def main() -> int:
     import torch
 
@@ -3200,6 +3751,10 @@ def main() -> int:
         print(f"chip_smoke: run from a checkout of the repository ({e})",
               file=sys.stderr)
         return 2
+    args = sys.argv[1:]
+    if "--dist-rank" in args:
+        i = args.index("--dist-rank")
+        return dist_rank(args[i + 1:i + 6])
     from bhraytracer_tpu_torch.native import get_lib
     from bhraytracer_tpu_torch.ops import kernels
 
@@ -3221,7 +3776,6 @@ def main() -> int:
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    args = sys.argv[1:]
     if "--profile" in args:
         profile_frames(dev, card, args[args.index("--profile") + 1:]
                        or list(PATHS))
@@ -3246,6 +3800,15 @@ def main() -> int:
         print(json.dumps({"finish": res, "launches": launches,
                           "calls": {k: per_kernel[k] for k in per_kernel},
                           "card": card}))
+        return 0
+    if "--distributed" in args:
+        per_kernel = {k: dict(max_abs_err=0.0, lanes_compared=0,
+                              walk_lanes=0) for k in FLAT + BVH + (
+                                  "bhrt_shade_setup",)}
+        res, launches = distributed_phase(dev, card, per_kernel)
+        print(json.dumps({"distributed": res, "launches": launches,
+                          "calls": {k: per_kernel[k] for k in per_kernel},
+                          "card": card}, default=str))
         return 0
     if "--textured-gradient" in args:
         print(json.dumps({"textured_gradient": textured_gradient(dev),
@@ -3465,6 +4028,11 @@ def main() -> int:
     # The finished render: adaptive pass, aux outputs, denoiser, and the
     # command line.
     paths["finish"], launches["finish"] = finish_phase(dev, card, per_kernel)
+
+    # Data parallelism: world 1 over NCCL, world 2 on the card and the CPU.
+    paths["distributed"], dist_launches = distributed_phase(dev, card,
+                                                            per_kernel)
+    launches.update(dist_launches)
 
     tiny_cam.width, tiny_cam.height = 800, 600
     timg = B.render_image(tiny_pack, tiny_cam, render_config(HEADLINE))

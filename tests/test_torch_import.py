@@ -38,3 +38,19 @@ def test_no_jax_import_in_sources():
                     if pattern.search(fh.read()):
                         offenders.append(os.path.join(root, f))
     assert not offenders, offenders
+
+
+def test_parallel_leaves_jax_out():
+    """The data-parallel modules import torch.distributed, not jax, and
+    export what the JAX package's parallel/ does, with
+    render_image_distributed and init_multihost."""
+    code = ("import sys\n"
+            "import bhraytracer_tpu_torch.parallel as P\n"
+            "import bhraytracer_tpu_torch.parallel.multihost\n"
+            "assert {'make_mesh', 'render_radiance_sharded', "
+            "'train_step_sharded', 'render_image_distributed', "
+            "'init_multihost'} <= set(P.__all__)\n"
+            "assert 'jax' not in sys.modules, 'jax imported'\n"
+            "assert 'bhraytracer_tpu' not in sys.modules\n")
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
+                   timeout=120)
