@@ -8,12 +8,19 @@
 // What bounds it on the H100: each ray reads 24 bytes and writes 8 (closest)
 // or 1 (occlusion), and tests every instance at ~45-67 flops; with a few
 // instances a call is bound by those bytes. The design is one thread per
-// ray over the instance tables, staged once per block in shared memory
-// when they have at most 32 rows each (common.cuh: bhrt_table) and read in
-// place otherwise, as broadcasts; the arithmetic is the `analytic_closest`
+// ray over the instance tables; the arithmetic is the `analytic_closest`
 // / `analytic_anyhit` device functions that kernels 1, 2 and 4-7 fold in
 // (trace.cuh), so every route computes a sphere or plane hit the same way.
-// The occlusion test stops at the first occluder.
+// The closest kernel stages tables of at most 32 rows once per block in
+// shared memory (common.cuh: bhrt_table) and reads bigger ones in place.
+// The occlusion kernel reads its tables in place, as broadcast loads that
+// L1 serves, with no barrier: at 480K shadow rays 0.0080 ms against 0.0086
+// with the staged tables, over a photon frame's 6 shadow calls 0.0693
+// against 0.0747 (medians of 5 profiles each, A B B A in one call; H100
+// 80GB HBM3, 700 W; PERF.md). Two or four rays a thread, with 8- or
+// 16-byte loads and one 2- or 4-byte store, ran slower (0.0090, 0.0100
+// ms), as fewer threads hid less of each ray's latency. The occlusion
+// test stops at the first occluder.
 //
 // The closest kernel runs on every trace of a mesh-free scene: 5,280 times
 // in a photon map's build, on batches of <= 32,768 photons, and 91 times a
@@ -69,17 +76,11 @@ analytic_anyhit_kernel(const float* __restrict__ sph, int n_sph,
                        const float* __restrict__ d,
                        const float* __restrict__ t_max, float ana_bias,
                        int plane_world_bug, int n, bool* __restrict__ occ_out) {
-  __shared__ float s_sph[BHRT_MAX_ANALYTIC * 12];
-  __shared__ float s_pln[BHRT_MAX_ANALYTIC * 12];
-  const float* tsph = bhrt_table(s_sph, sph, n_sph);
-  const float* tpln = bhrt_table(s_pln, pln, n_pln);
-  __syncthreads();
-
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   Ray r;
   load_ray(o, d, i, r);
-  occ_out[i] = analytic_anyhit(tsph, n_sph, tpln, n_pln, r, t_max[i],
+  occ_out[i] = analytic_anyhit(sph, n_sph, pln, n_pln, r, t_max[i],
                                ana_bias, plane_world_bug);
 }
 

@@ -178,7 +178,12 @@ def save_weights(model: DenoiserUNet, path: str) -> None:
 
 def load_weights(path: str, device=None) -> DenoiserUNet:
     """Inverse of save_weights, and the reader of the reference's files:
-    (3, 3, in, out) kernels become torch's (out, in, 3, 3)."""
+    (3, 3, in, out) kernels become torch's (out, in, 3, 3). On `device`:
+    the card unless the caller asks for the CPU (scene/pack.py:
+    resolve_device, which raises where no card exists)."""
+    from bhraytracer_tpu_torch.scene.pack import resolve_device
+
+    device = resolve_device(device)
     data = np.load(path)
     feats = (tuple(int(x) for x in data["__features__"])
              if "__features__" in data.files else (16, 32, 64))
@@ -188,18 +193,16 @@ def load_weights(path: str, device=None) -> DenoiserUNet:
             k = torch.from_numpy(data[f"params/Conv_{i}/kernel"])
             conv.weight.copy_(k.permute(3, 2, 0, 1))
             conv.bias.copy_(torch.from_numpy(data[f"params/Conv_{i}/bias"]))
-    return model.to(device) if device is not None else model
+    return model.to(device)
 
 
 def load_pretrained(device=None) -> DenoiserUNet:
     """The shipped weights (features (24, 48, 96), albedo and normal aux),
     on `device`: the card unless the caller asks for the CPU, as
     scene/pack.py:resolve_device."""
-    from bhraytracer_tpu_torch.scene.pack import resolve_device
-
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         _PRETRAINED)
-    return load_weights(path, resolve_device(device))
+    return load_weights(path, device)
 
 
 def render_training_pairs(pack, camera, base_cfg, n_pairs: int = 4,

@@ -37,6 +37,15 @@ the shade step is unfused, mesh hits resolve through rows rebuilt from
 the vertex pools (`rows_from_pools`), and every scatter is out of place.
 The refraction chain keeps its while loops: the JAX package's fixed-trip
 scans are a fixpoint of the same trips, so the values are equal.
+
+Lane frames (`frame=`, ops/compact.py:LaneFrame): a rank of a sharded
+train step renders some of the lanes of one process's chunk, and its
+frame gives their global rows. Every draw then takes its rows of the
+table one process would draw (rng.uniform_rows), every compaction keeps
+and numbers the candidates as one process would (global_partition, one
+exchange of counts a compaction), capacities come from the global
+widths, and a rank builds its kept candidates alone: no filler slots,
+which no output reads. Without a frame, a chunk is the one process.
 """
 
 from __future__ import annotations
@@ -59,7 +68,11 @@ from bhraytracer_tpu_torch.ops.camera import (
     from_scene_camera,
     gen_rays,
 )
-from bhraytracer_tpu_torch.ops.compact import lookup_rows, partition_indices
+from bhraytracer_tpu_torch.ops.compact import (
+    global_partition,
+    lookup_rows,
+    partition_indices,
+)
 from bhraytracer_tpu_torch.ops.linalg import (
     BIG,
     cross,
@@ -412,14 +425,16 @@ def _shade_unfused(pack, cfg: RenderConfig, o, d, hit, shade, u_tab,
 
 
 def _glossy_refr_dir(vt, vn, rgloss, key, tag: int, want_negative: bool,
-                     tries: int):
+                     tries: int, rows=None):
     """Fixed-try rejection resampling of the refraction direction
     (MtlBlinn.cpp:454-465, 560-572), falling back to the perfect one. Try k
     draws its two uniforms from fold_in(key, tag + 2k) and
-    fold_in(key, tag + 2k + 1), all 2*tries streams in one call."""
+    fold_in(key, tag + 2k + 1), all 2*tries streams in one call; with
+    `rows`, the lanes' global slots, their rows of the global draws."""
     n = vt.shape[0]
     keys = rng.fold_in(key, tag + torch.arange(2 * tries, device=vt.device))
-    us = rng.uniform(keys, (n,))
+    us = (rng.uniform(keys, (n,)) if rows is None
+          else rng.uniform_rows(keys, rows))
     chosen = normalize(vt)
     found = torch.zeros(n, dtype=torch.bool, device=vt.device)
     for k in range(tries):
@@ -434,12 +449,18 @@ def _glossy_refr_dir(vt, vn, rgloss, key, tag: int, want_negative: bool,
 
 
 def _refraction_chain(pack, cfg: RenderConfig, surf: Surface, mtl: Mtl, vn,
-                      vv, cos_phi1, refr_eff, active, bounce, key):
+                      vv, cos_phi1, refr_eff, active, bounce, key,
+                      frame=None):
     """The enter/TIR/exit chain in two stages: tir_head_trips full-width
     trips, then the stragglers recompacted to 1/tir_tail_divisor width
     (pathtracer.py:573-613). Returns (case, child_o, child_d, bounce_left,
-    dropped, segs)."""
+    dropped, segs). With a frame (the lanes' refraction slots), the widths
+    are global and the tail compaction exchanges counts; a rank whose
+    lanes have settled stops early, as trips of settled lanes change
+    nothing and a trip's key depends on its number alone."""
     n = surf.p.shape[0]
+    width = n if frame is None else frame.width
+    rows = None if frame is None else frame.rows
     miss_o, miss_d = _vec(_MISS_O, vn), _vec(_MISS_D, vn)
 
     # --- entry refraction direction (MtlBlinn.cpp:443-465) ---
@@ -452,7 +473,7 @@ def _refraction_chain(pack, cfg: RenderConfig, surf: Surface, mtl: Mtl, vn,
     # 0 (MtlBlinn.cpp:115-116).
     rgloss = torch.where(mtl.gloss > 50.0, mtl.gloss, 0.0)
     vt = _glossy_refr_dir(vtn + vtp, vn, rgloss, key, 20, True,
-                          cfg.refr_gloss_tries)
+                          cfg.refr_gloss_tries, rows)
     chain_active = active & (refr_eff != 0.0).any(1) & (bounce > 0)
     trip_key = rng.fold_in(key, 40)
 
@@ -461,7 +482,7 @@ def _refraction_chain(pack, cfg: RenderConfig, surf: Surface, mtl: Mtl, vn,
              out_o=surf.p, out_d=vt,
              segs=torch.zeros((), dtype=torch.int64, device=vn.device))
 
-    def trip(s, it, ior, rgl):
+    def trip(s, it, ior, rgl, rows):
         live = ~s["settled"]
         ray_o = torch.where(live[:, None], s["p"] - s["nrm"] * cfg.bias, miss_o)
         ray_d = torch.where(live[:, None], s["d"], miss_d)
@@ -480,7 +501,7 @@ def _refraction_chain(pack, cfg: RenderConfig, surf: Surface, mtl: Mtl, vn,
         vt2 = (vn2 * c2[:, None]
                + normalize(cross(vn2, cross(vn2, vv2))) * s2[:, None])
         vt2 = _glossy_refr_dir(vt2, vn2, rgl, rng.fold_in(trip_key, it), 0,
-                               False, cfg.refr_gloss_tries)
+                               False, cfg.refr_gloss_tries, rows)
         out_o = sres.p + vn2 * cfg.bias
         vr = -2.0 * c1[:, None] * vn2 - vv2  # internal reflection (:582)
         exhausted = s["bounce"] <= 0
@@ -507,22 +528,25 @@ def _refraction_chain(pack, cfg: RenderConfig, surf: Surface, mtl: Mtl, vn,
     it = 0
     head = min(cfg.tir_head_trips, cfg.tir_bounces + 1)
     while it < head and bool((~s["settled"]).any()):
-        s = trip(s, it, mtl.ior, rgloss)
+        s = trip(s, it, mtl.ior, rgloss, rows)
         it += 1
 
-    k2 = max(128, -(-n // cfg.tir_tail_divisor) // 128 * 128)
+    k2 = max(128, -(-width // cfg.tir_tail_divisor) // 128 * 128)
     dropped = torch.zeros((), dtype=torch.int64, device=vn.device)
-    if cfg.tir_tail_compaction and k2 < n:
+    if cfg.tir_tail_compaction and k2 < width:
         unsettled = ~s["settled"]
-        sel = partition_indices(unsettled, k2)  # unsettled first
-        sel_valid = unsettled[sel]
+        if frame is None:
+            sel, tail_rows = partition_indices(unsettled, k2), None
+        else:
+            sel, tail_rows = global_partition(unsettled, k2, frame)
+        sel_valid = unsettled[sel]  # unsettled first
         sub = {k: s[k][sel] for k in
                ("p", "nrm", "d", "bounce", "case", "out_o", "out_d")}
         sub["settled"] = ~sel_valid
         sub["segs"] = s["segs"]
         ior_k, rgl_k = mtl.ior[sel], rgloss[sel]
         while bool((~sub["settled"]).any()):
-            sub = trip(sub, it, ior_k, rgl_k)
+            sub = trip(sub, it, ior_k, rgl_k, tail_rows)
             it += 1
         # Out of place (index_put), so autograd keeps every value it saved.
         for k in ("case", "bounce", "out_o", "out_d"):
@@ -533,7 +557,7 @@ def _refraction_chain(pack, cfg: RenderConfig, surf: Surface, mtl: Mtl, vn,
         segs = sub["segs"]
     else:
         while bool((~s["settled"]).any()):
-            s = trip(s, it, mtl.ior, rgloss)
+            s = trip(s, it, mtl.ior, rgloss, rows)
             it += 1
         segs = s["segs"]
     return s["case"], s["out_o"], s["out_d"], s["bounce"], dropped, segs
@@ -545,11 +569,13 @@ def _refraction_chain(pack, cfg: RenderConfig, surf: Surface, mtl: Mtl, vn,
 
 
 def _shade_level(pack, cfg: RenderConfig, tasks: Tasks, level: int, key,
-                 pmap=None, dd_x=None, dd_y=None):
+                 pmap=None, dd_x=None, dd_y=None, frame=None):
     """One tree level (pathtracer.py:625-920); dd_x, dd_y are the camera's
     pixel deltas, which the unfused step's plane ray differentials read at
-    every level (the reference's globals)."""
+    every level (the reference's globals). Returns (record, children,
+    surface, the children's frame: None without a frame)."""
     n = tasks.o.shape[0]
+    width = n if frame is None else frame.width
     act = tasks.active[:, None]
     o = torch.where(act, tasks.o, _vec(_MISS_O, tasks.o))
     d = torch.where(act, tasks.d, _vec(_MISS_D, tasks.o))
@@ -559,7 +585,8 @@ def _shade_level(pack, cfg: RenderConfig, tasks: Tasks, level: int, key,
     reorder = level != 0
     hit = trace_closest(pack, o, d, "front", reorder=reorder)
     shade = tasks.active & hit.hit
-    u_tab = rng.uniform(rng.fold_in(key, 1), (n, 13))
+    u_tab = (rng.uniform(rng.fold_in(key, 1), (n, 13)) if frame is None
+             else rng.uniform_rows(rng.fold_in(key, 1), frame.rows, 13))
     if shade_setup_supported(pack, cfg, pmap):
         sh = _shade_fused(pack, cfg, o, d, hit, shade, u_tab, reorder)
     else:
@@ -572,15 +599,21 @@ def _shade_level(pack, cfg: RenderConfig, tasks: Tasks, level: int, key,
 
     # --- refraction chain on compacted refractive lanes ---
     chain_cand = shade & (sh.refr_eff != 0.0).any(1) & (tasks.bounce > 0)
-    sel = partition_indices(chain_cand, cfg.refr_cap(n))  # candidates first
-    sel_valid = chain_cand[sel]
+    k_cap = cfg.refr_cap(width)
+    if frame is None:
+        sel, chain_frame = partition_indices(chain_cand, k_cap), None
+    else:
+        sel, slot = global_partition(chain_cand, k_cap, frame)
+        chain_frame = frame._replace(rows=slot, width=k_cap,
+                                     seg=frame.seg[sel])
+    sel_valid = chain_cand[sel]  # candidates first
     surf_k = Surface(*[f[sel] for f in surf])
     mtl_k = _fetch_mtl(pack, surf_k.mtl)
     refr_eff_k = sh.refr_eff[sel]
     case, ro, rd, bounce_left, drop_tir, chain_segs = _refraction_chain(
         pack, cfg, surf_k, mtl_k, surf.n[sel], normalize(o[sel] - surf_k.p),
         sh.cos_phi1[sel], refr_eff_k, sel_valid, tasks.bounce[sel],
-        rng.fold_in(key, 2))
+        rng.fold_in(key, 2), chain_frame)
     drop_refr = chain_cand.sum() - sel_valid.sum()
     segs = tasks.active.sum() + sh.n_shadow + chain_segs
     refr_has_child = ((case == _CASE_FRONT) | (case == _CASE_OUT)) & sel_valid
@@ -595,12 +628,17 @@ def _shade_level(pack, cfg: RenderConfig, tasks: Tasks, level: int, key,
     # --- GI lobe ---
     drop_gi = torch.zeros((), dtype=torch.int64, device=o.device)
     gi_on = cfg.gi_active(level)
+    g_cap = cfg.gi_cap(width) if gi_on else 0
+    gi_frame = frame
     if gi_on:
         gi_o, gi_d, gi_albedo, gi_env = sh.gi_o, sh.gi_d, sh.gi_albedo, sh.gi_env
-        g_cap = cfg.gi_cap(n)
-        if g_cap < n:
+        if g_cap < width:
             # Missed / inactive lanes need no GI subtree.
-            sel_g = partition_indices(shade, g_cap)
+            if frame is None:
+                sel_g = partition_indices(shade, g_cap)
+            else:
+                sel_g, slot_g = global_partition(shade, g_cap, frame)
+                gi_frame = frame._replace(rows=slot_g, seg=frame.seg[sel_g])
             sel_g_valid = shade[sel_g]
             drop_gi = shade.sum() - sel_g_valid.sum()
             gi_children = Tasks(o=gi_o[sel_g], d=gi_d[sel_g],
@@ -633,7 +671,19 @@ def _shade_level(pack, cfg: RenderConfig, tasks: Tasks, level: int, key,
                            zip(gi_children, refr_children)])
     else:
         children = refr_children
-    return rec, children, surf
+    if frame is None:
+        return rec, children, surf, None
+    # The children's rows: the GI slots', then G + the refraction slots,
+    # in segments after the GI slots' own.
+    n_gi_seg = frame.n_seg if gi_on else 0
+    gi_rows, gi_seg = ((gi_frame.rows, gi_frame.seg) if gi_on
+                       else (frame.rows[:0], frame.seg[:0]))
+    child_frame = frame._replace(
+        rows=torch.cat([gi_rows, g_cap + chain_frame.rows]),
+        width=g_cap + k_cap,
+        seg=torch.cat([gi_seg, n_gi_seg + chain_frame.seg]),
+        n_seg=n_gi_seg + frame.n_seg)
+    return rec, children, surf, child_frame
 
 
 def _combine_level(cfg: RenderConfig, level: int, rec: LevelRecord,
@@ -643,7 +693,7 @@ def _combine_level(cfg: RenderConfig, level: int, rec: LevelRecord,
     [refr (K)]."""
     n = rec.active.shape[0]
     gi_on = cfg.gi_active(level)
-    g_cap = cfg.gi_cap(n) if gi_on else 0
+    g_cap = rec.gi_sel.shape[0]  # the GI children here (0 without GI)
     r_rad, r_z, r_hit = child_rad[g_cap:], child_z[g_cap:], child_hit[g_cap:]
 
     # --- refraction term at K width, scattered to parent lanes ---
@@ -720,15 +770,17 @@ def _pixels(width: int, height: int, chunk: int, start: int, device):
 
 
 def _camera_rays(cfg: RenderConfig, cam, width: int, height: int, px, py,
-                 key):
+                 key, rows=None):
     """Jittered camera rays of pixels (px, py), the jitter from
     fold_in(key, 0), and each pixel's background uv (px/width, py/height,
     0) (pathtracer.py:1076-1090). With cfg.use_dof the draw is (N,4), its
     last two columns the lens sample: threefry's values depend on the
     draw's shape, so the pixel jitter is a (N,4) draw's first two columns,
-    as in the reference (pathtracer.py:1120-1121)."""
-    u = rng.uniform(rng.fold_in(key, 0), (px.shape[0], 4 if cfg.use_dof
-                                          else 2))
+    as in the reference (pathtracer.py:1120-1121). With `rows`, the
+    lanes' global rows, their rows of the global draw."""
+    cols = 4 if cfg.use_dof else 2
+    u = (rng.uniform(rng.fold_in(key, 0), (px.shape[0], cols)) if rows is None
+         else rng.uniform_rows(rng.fold_in(key, 0), rows, cols))
     o, d = gen_rays(cam, width, height, px, py, u)
     bg_uv = torch.stack([px.float() / width, py.float() / height,
                          o.new_zeros(px.shape[0])], -1)
@@ -758,12 +810,13 @@ def _stage_aux(pack, surf: Surface, hit_mask):
 
 
 def trace_radiance(pack, cfg: RenderConfig, o, d, bg_uv, key, dd_x, dd_y,
-                   pmap=None, want_aux: bool = False):
+                   pmap=None, want_aux: bool = False, frame=None):
     """Radiance of camera rays (o, d) with per-pixel background uv
     (pathtracer.py:1024-1073): (rad (N,3), z0 (N,), ChunkStats of 0-dim
     tensors summed over the shade tree), and with want_aux also the
     (albedo, normal) of the level-0 surface (`_stage_aux`). Level l draws
-    from fold_in(key, 100 + l)."""
+    from fold_in(key, 100 + l). With a frame (the rays' global rows), the
+    stats are this rank's part of the global ones."""
     if cfg.differentiable and pack.n_msh:
         # Mesh hits resolve through rows gathered from the vertex, normal
         # and uv pools, so their gradients reach pack.verts
@@ -777,9 +830,9 @@ def trace_radiance(pack, cfg: RenderConfig, o, d, bg_uv, key, dd_x, dd_y,
                                     device=o.device))
     recs = []
     for level in range(cfg.max_levels):
-        rec, tasks, surf = _shade_level(pack, cfg, tasks, level,
-                                        rng.fold_in(key, 100 + level), pmap,
-                                        dd_x, dd_y)
+        rec, tasks, surf, frame = _shade_level(
+            pack, cfg, tasks, level, rng.fold_in(key, 100 + level), pmap,
+            dd_x, dd_y, frame)
         if level == 0:
             surf0 = surf
         recs.append(rec)
@@ -795,17 +848,21 @@ def trace_radiance(pack, cfg: RenderConfig, o, d, bg_uv, key, dd_x, dd_y,
 
 
 def _render_chunk(pack, cfg: RenderConfig, cam, width: int, height: int, px,
-                  py, key, photon_map=None, want_aux: bool = False):
+                  py, key, photon_map=None, want_aux: bool = False,
+                  frame=None):
     """Radiance of one chunk of (pixel, sample) lanes, px/py (N,): (rad
     (N,3), z0 (N,), ChunkStats), and with want_aux the level-0 (albedo,
     normal) (pathtracer.py:1076-1098). Camera jitter from fold_in(key, 0),
     the shade tree from fold_in(key, 1). A plain function of the pack's and
     the camera's tensors: with cfg.differentiable, torch.autograd takes its
-    gradients (parallel/sharding.py)."""
-    o, d, bg_uv = _camera_rays(cfg, cam, width, height, px, py, key)
+    gradients (parallel/sharding.py). With a frame (ops/compact.py:
+    LaneFrame), the lanes are those of the frame's rows in one chunk of
+    frame.width lanes, rendered as that chunk renders them."""
+    o, d, bg_uv = _camera_rays(cfg, cam, width, height, px, py, key,
+                               None if frame is None else frame.rows)
     _, dd_x, dd_y = camera_basis(cam, width, height)
     return trace_radiance(pack, cfg, o, d, bg_uv, rng.fold_in(key, 1), dd_x,
-                          dd_y, photon_map, want_aux)
+                          dd_y, photon_map, want_aux, frame)
 
 
 def _escalated(cfg: RenderConfig, esc: int) -> RenderConfig:

@@ -28,6 +28,13 @@ class CameraParams(NamedTuple):
 
 
 def from_scene_camera(cam, device=None) -> CameraParams:
+    """The camera's tensors on `device`: the card unless the caller asks
+    for the CPU (scene/pack.py:resolve_device, which raises where no card
+    exists)."""
+    from bhraytracer_tpu_torch.scene.pack import resolve_device
+
+    device = resolve_device(device)
+
     def f(x):
         return torch.as_tensor(x, dtype=torch.float32, device=device)
 

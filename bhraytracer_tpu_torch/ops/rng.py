@@ -15,7 +15,10 @@ bits makes lane-for-lane parity with the JAX package possible. This matches
 Words are held in int64 tensors masked to 32 bits (torch's uint32 support
 is partial), so the same code runs on the CPU and on the card. A key is an
 int64 tensor of shape (..., 2): a batch of keys draws a batch of streams in
-one call.
+one call. Element i of a draw comes from counter i alone, so a draw of
+some rows of a table (`uniform_rows`) costs those rows only: a rank of a
+sharded render draws the rows its lanes hold of the table one process
+would draw over all lanes.
 """
 
 from __future__ import annotations
@@ -60,12 +63,22 @@ def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     return torch.stack(torch.broadcast_tensors(y0, y1), -1)
 
 
-def random_bits(key: torch.Tensor, n: int) -> torch.Tensor:
-    """(..., n) uint32 words (as int64) of the flat index stream 0..n-1."""
-    i = torch.arange(n, dtype=torch.int64, device=key.device)
+def _counter_bits(key: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """(..., m) uint32 words (as int64) of the flat counters i (m,)."""
     y0, y1 = threefry2x32(key[..., 0, None], key[..., 1, None],
                           i >> 32, i & _M32)
     return y0 ^ y1
+
+
+def random_bits(key: torch.Tensor, n: int) -> torch.Tensor:
+    """(..., n) uint32 words (as int64) of the flat index stream 0..n-1."""
+    return _counter_bits(key, torch.arange(n, dtype=torch.int64,
+                                           device=key.device))
+
+
+def _to_uniform(bits: torch.Tensor) -> torch.Tensor:
+    bits = (bits >> 9) | 0x3F800000
+    return bits.to(torch.int32).view(torch.float32) - 1.0
 
 
 def uniform(key: torch.Tensor, shape) -> torch.Tensor:
@@ -75,6 +88,19 @@ def uniform(key: torch.Tensor, shape) -> torch.Tensor:
     n = 1
     for s in shape:
         n *= s
-    bits = (random_bits(key, n) >> 9) | 0x3F800000
-    f = bits.to(torch.int32).view(torch.float32) - 1.0
-    return f.reshape(key.shape[:-1] + shape)
+    return _to_uniform(random_bits(key, n)).reshape(key.shape[:-1] + shape)
+
+
+def uniform_rows(key: torch.Tensor, rows: torch.Tensor,
+                 k: int | None = None) -> torch.Tensor:
+    """Rows `rows` ((m,) int64, any order) of ``uniform(key, (N, k))``, or
+    of ``uniform(key, (N,))`` where k is None, for any N above the rows,
+    without drawing the others: counters rows*k + j, or rows. A key batch
+    (..., 2) gives (..., m, k) or (..., m)."""
+    rows = rows.to(torch.int64)
+    if k is None:
+        return _to_uniform(_counter_bits(key, rows))
+    i = (rows[:, None] * k + torch.arange(k, dtype=torch.int64,
+                                         device=rows.device)).reshape(-1)
+    return _to_uniform(_counter_bits(key, i)).reshape(
+        key.shape[:-1] + (rows.shape[0], k))

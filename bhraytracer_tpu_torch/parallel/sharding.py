@@ -4,22 +4,26 @@ bhraytracer_tpu/parallel/sharding.py).
 The flat (pixel, sample) lane axis is sharded over a 1-D "dp" mesh of
 torch.distributed ranks, one process per device, and the scene is
 replicated on every rank (`make_mesh`, parallel/multihost.py). Rank r
-renders lanes [r*shard, (r+1)*shard) through `_render_chunk` with the key
-folded by its global lane offset, fold_in(key, r*shard), as the JAX
-package's shard_map body does (sharding.py:61-93): a sharded render is
-the same estimator as a one-device render with decorrelated streams, not
-the same bits.
+renders lanes [r*shard, (r+1)*shard).
 
   - `render_radiance_sharded`: every rank passes the global lanes and
-    gets the global (N, 3) radiance back (one all-gather).
-  - `render_image_distributed`: a whole image, chunk by chunk, the
-    samples summed on each rank before one all-gather a chunk.
+    gets the global (N, 3) radiance back (one all-gather). Rank r keys
+    its shard by its global lane offset, fold_in(key, r*shard), as the
+    JAX package's shard_map body does (sharding.py:61-93): the same
+    estimator as a one-device render with decorrelated streams, not the
+    same bits.
+  - `render_image_distributed`: a whole image, chunk by chunk, each chunk
+    as `render_radiance_sharded` renders it, the samples summed on each
+    rank before one all-gather a chunk.
   - `train_step_sharded`: one SGD step; each rank differentiates its
-    shard's part of the image MSE, and the loss and gradients are summed
-    over the ranks in one all-reduce. The JAX step is one global program
-    keyed by `key`; here each shard is keyed as `render_radiance_sharded`
-    keys it (ROADMAP Queue 3), so a sharded step and a sharded render see
-    the same samples.
+    lanes' part of the image MSE, and the loss and gradients are summed
+    over the ranks in one all-reduce. As the JAX step (one global program
+    keyed by `key`), it is the one-device step at any world size: each
+    rank renders its lanes in the lane frame of the whole chunk
+    (`lane_frame`, models/pathtracer.py), keyed by `key`, so its draws
+    and compactions are those of one process rendering every lane; the
+    frame's compactions exchange counts (one all-gather of a few int64
+    each, about two a tree level).
   - `train_step` is the one-device step (no mesh).
 
 Gradients are torch.autograd's through `_render_chunk` with
@@ -40,6 +44,7 @@ from torch.distributed.device_mesh import DeviceMesh
 from bhraytracer_tpu_torch.models.pathtracer import ChunkStats, _render_chunk
 from bhraytracer_tpu_torch.ops import rng
 from bhraytracer_tpu_torch.ops.camera import from_scene_camera
+from bhraytracer_tpu_torch.ops.compact import LaneFrame
 from bhraytracer_tpu_torch.ops.trace import check_traceable
 from bhraytracer_tpu_torch.parallel.multihost import init_group, rank_device
 
@@ -181,6 +186,27 @@ def _all_gather(x, group):
     return out
 
 
+def _count_exchange(group, rank: int, counts):
+    """(the sum over lower ranks, the sum over all) of each rank's (S,)
+    int64 counts: one all_gather_into_tensor on the mesh's group."""
+    every = _all_gather(counts, group).view(-1, counts.shape[0])
+    return every[:rank].sum(0), every.sum(0)
+
+
+def lane_frame(mesh: DeviceMesh, n: int, device) -> LaneFrame:
+    """This rank's lanes [r*shard, (r+1)*shard) of n global lanes as a lane
+    frame on `device` (ops/compact.py): `_render_chunk(...,
+    frame=lane_frame(mesh, n, device))` of those lanes renders them as one
+    process renders all n, its compactions exchanging counts over the
+    mesh."""
+    group, r, shard = _dp(mesh, n)
+    dev = torch.device(device)
+    return LaneFrame(
+        rows=torch.arange(r * shard, (r + 1) * shard, device=dev), width=n,
+        seg=torch.zeros(shard, dtype=torch.int64, device=dev), n_seg=1,
+        exchange=lambda counts: _count_exchange(group, r, counts))
+
+
 def _render_shard(pack, cfg, cam, width, height, px, py, key, r, shard):
     """_render_chunk of rank r's lanes of the global (px, py), keyed by the
     shard's global lane offset: fold_in(key, r * shard) (sharding.py:
@@ -207,19 +233,23 @@ def loss_and_grads_sharded(params: dict, pack, cfg, cam, width: int,
                            mesh: DeviceMesh):
     """The image MSE over the global lanes (px, py) against target (N, 3),
     and its gradients with respect to every parameter, the same on every
-    rank: (loss (), {name: grad}). Rank r differentiates
-    sum((rad_r - target_r)**2) / (3N) of its shard, rendered as
-    render_radiance_sharded renders it; the loss and the gradients are
-    summed over the ranks in one all-reduce of one flat buffer."""
+    rank: (loss (), {name: grad}), loss_and_grads' at any world size up to
+    the order of float sums. Rank r differentiates
+    sum((rad_r - target_r)**2) / (3N) of its lanes, rendered in the lane
+    frame of all N keyed by `key` (lane_frame); the loss and the gradients
+    are summed over the ranks in one all-reduce of one flat buffer."""
     if not cfg.differentiable:
         raise ValueError("loss_and_grads_sharded needs cfg.differentiable")
     n = px.shape[0]
     group, r, shard = _dp(mesh, n)
 
+    frame = lane_frame(mesh, n, px.device)
+
     def loss_fn(leaves):
         pk, cm = _apply_params(pack, cam, leaves)
-        rad, _, _ = _render_shard(pk, cfg, cm, width, height, px, py, key, r,
-                                  shard)
+        rad, _, _ = _render_chunk(pk, cfg, cm, width, height,
+                                  _shard(px, r, shard), _shard(py, r, shard),
+                                  key, frame=frame)
         return torch.sum((rad - _shard(target, r, shard)) ** 2) / (3 * n)
 
     loss, grads = _value_and_grad(params, None, loss_fn)
@@ -236,9 +266,8 @@ def train_step_sharded(params: dict, opt_state, pack, cfg, cam, width: int,
                        lr: float = 1e-2):
     """One SGD step of inverse rendering on sharded lanes (sharding.py:
     154-176): (new params, opt_state passed through, loss), the same on
-    every rank. The gradients are loss_and_grads_sharded's; each shard is
-    keyed fold_in(key, r*shard), where the JAX step keys the whole image
-    by `key` (ROADMAP Queue 3)."""
+    every rank and, up to the order of float sums, `train_step`'s at any
+    world size. The gradients are loss_and_grads_sharded's."""
     loss, grads = loss_and_grads_sharded(params, pack, cfg, cam, width,
                                          height, px, py, target, key, mesh)
     return _sgd(params, grads, lr), opt_state, loss

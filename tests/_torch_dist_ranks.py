@@ -5,8 +5,11 @@
 Joins the world at file://INIT_FILE, makes the "dp" mesh and runs every
 port-side check of the module on the tiny scene (the same scene and
 config as tests/_torch_sharding_jax.py, whose top level imports numpy
-only), writing OUT_DIR/rank<RANK>.npz. This module imports torch and the
-port, never JAX.
+only), writing OUT_DIR/rank<RANK>.npz. Rank 0 of the world of 2 also
+computes what one process gets (`single*`: loss_and_grads of all lanes,
+and DROP_CFG's render of all DROP_LANES lanes), outside any collective,
+and the camera gradients' lane mass (`camera_mass`). This module imports
+torch and the port, never JAX.
 """
 
 from __future__ import annotations
@@ -24,6 +27,34 @@ import torch  # noqa: E402
 from tests import _torch_sharding_jax as J  # noqa: E402
 
 LR, STEPS = 0.05, 5  # tests/test_sharding.py:143-163
+CAMERA = ("cam_pos", "cam_dir", "cam_up")
+
+
+def camera_mass(params, pack, cfg, cam, w, h, px, py, target, key):
+    """For each camera parameter's element e, sum_i |d l_i / d theta_e| /
+    (3N) over the lanes' squared errors l_i = |rad_i - target_i|^2: the
+    loss gradient's terms before they cancel in its sum (forward-mode AD,
+    one pass an element, one process)."""
+    import torch.autograd.forward_ad as fwd
+
+    from bhraytracer_tpu_torch.parallel import sharding as S
+
+    out = {}
+    for name in CAMERA:
+        cols = []
+        for j in range(params[name].numel()):
+            with fwd.dual_level():
+                tan = torch.zeros_like(params[name])
+                tan.view(-1)[j] = 1.0
+                leaves = dict(params,
+                              **{name: fwd.make_dual(params[name], tan)})
+                pk, cm = S._apply_params(pack, cam, leaves)
+                rad, _, _ = S._render_chunk(pk, cfg, cm, w, h, px, py, key)
+                lanes = ((rad - target) ** 2).sum(-1)
+                cols.append(fwd.unpack_dual(lanes).tangent.abs().sum())
+        out[name] = torch.stack(cols).view_as(params[name]) / (
+            3 * px.shape[0])
+    return out
 
 
 def main(rank: int, world: int, init: str, out: str) -> None:
@@ -81,6 +112,39 @@ def main(rank: int, world: int, init: str, out: str) -> None:
     res["rad_tiled"] = sharded(qx.repeat(world), qy.repeat(world),
                                rng.prng_key(5))
 
+    params = S.trainable_params(pack, cam_p)
+    tkey = rng.prng_key(J.KEY_TRAIN)
+    target = torch.from_numpy(J.target())
+    loss, grads = S.loss_and_grads_sharded(params, pack, cfg, cam_p, w, h,
+                                           px, py, target, tkey, mesh)
+    res["loss"] = loss
+    res.update({f"grad/{k}": g for k, g in grads.items()})
+    res.update({f"param/{k}": v for k, v in params.items()})
+
+    # DROP_CFG: this rank's lanes in the frame of all DROP_LANES lanes.
+    dcfg, dkey = RenderConfig(**J.DROP_CFG), rng.prng_key(J.DROP_KEY)
+    dx, dy = (torch.from_numpy(a.astype(np.int64))
+              for a in J.lanes(w, h, J.DROP_LANES))
+    shard = J.DROP_LANES // world
+    mine = slice(rank * shard, (rank + 1) * shard)
+    with torch.no_grad():
+        rad, _, st = S._render_chunk(
+            pack, dcfg, cam_p, w, h, dx[mine], dy[mine], dkey,
+            frame=S.lane_frame(mesh, J.DROP_LANES, cpu))
+        res["drop_rad"], res["drop_stats"] = rad, np.array(list(st))
+    if rank == 0 and world == 2:
+        one_loss, one_grads = S.loss_and_grads(params, pack, cfg, cam_p, w,
+                                               h, px, py, target, tkey)
+        res["single_loss"] = one_loss
+        res.update({f"single_grad/{k}": g for k, g in one_grads.items()})
+        with torch.no_grad():
+            rad, _, st = S._render_chunk(pack, dcfg, cam_p, w, h, dx, dy,
+                                         dkey)
+        res["drop_single_rad"] = rad
+        res["drop_single_stats"] = np.array(list(st))
+        res.update({f"camera_mass/{k}": v for k, v in camera_mass(
+            params, pack, cfg, cam_p, w, h, px, py, target, tkey).items()})
+
     if world == 2:
         icam = dataclasses.replace(cam, width=J.IMAGE_SIZE[0],
                                    height=J.IMAGE_SIZE[1])
@@ -90,14 +154,6 @@ def main(rank: int, world: int, init: str, out: str) -> None:
         res["image_is_tensor"] = isinstance(img, torch.Tensor)
         res["image"], res["image_stats"] = img, np.array(list(st))
 
-        params = S.trainable_params(pack, cam_p)
-        tkey = rng.prng_key(J.KEY_TRAIN)
-        target = torch.from_numpy(J.target())
-        loss, grads = S.loss_and_grads_sharded(params, pack, cfg, cam_p, w, h,
-                                               px, py, target, tkey, mesh)
-        res["loss"] = loss
-        res.update({f"grad/{k}": g for k, g in grads.items()})
-        res.update({f"param/{k}": v for k, v in params.items()})
         new, state, loss1 = S.train_step_sharded(
             params, "state", pack, cfg, cam_p, w, h, px, py, target, tkey,
             mesh, lr=LR)

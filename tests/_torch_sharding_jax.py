@@ -13,11 +13,24 @@ On conftest's 8-device virtual CPU mesh, with tests/test_sharding.py:
     computes, compiled outside it;
   - image: render_image_distributed on make_mesh(2) at IMAGE_SIZE with
     IMAGE_CFG and IMAGE_SEED;
-  - loss, grad/<name>: the per-shard composition of a sharded train step
-    on 2 shards: for shard r, jax.value_and_grad of
-    sum((rad_r - target_r)**2) / (3 * LANES) through _apply_params and
-    _render_chunk, keyed fold_in(KEY_TRAIN, r * shard), summed over r,
-    with trainable_params(pack, cam) and `target()`.
+  - loss, grad/<name>: train_step_sharded on make_mesh(2), keyed
+    PRNGKey(KEY_TRAIN), with trainable_params(pack, cam) and `target()`:
+    its loss, and its gradients read back from the step as
+    (params - new params) / GRAD_LR in float64. GRAD_LR is a power of two,
+    so lr * g is exact, and so large that the float32 rounding of
+    params - lr * g is ~6e-8 of |g| after the division;
+  - vg_loss, vg_grad/<name>: the same loss and gradients as one jitted
+    value_and_grad on one device, the scene, lanes, target and key closed
+    over: the same function as the step, compiled as another program. The
+    two differ on one of the 512 lanes, where a Monte Carlo decision takes
+    the other branch (the step's loss 2.3e-5 above this one's); the test
+    bounds the port by that difference too.
+
+The shared constants of tests/test_torch_sharding.py's rank processes
+(tests/_torch_dist_ranks.py) are here too: DROP_CFG / DROP_LANES, a
+config that drops refraction and GI lanes on the tiny scene over three
+levels, so a sharded render's compactions run over several segments of
+global rows (ops/compact.py:LaneFrame).
 """
 
 from __future__ import annotations
@@ -40,6 +53,11 @@ CFG = dict(spp=1, gi_bounces=1, extra_refr_levels=0, tir_bounces=2,
 # samples (each a compile of its own on the JAX side).
 IMAGE_SIZE, IMAGE_SEED = (25, 19), 3
 IMAGE_CFG = dict(CFG, spp=2)
+GRAD_LR = 2.0 ** 30
+# Drops 150 refraction lanes (of 278 candidates) and 1,921 GI lanes.
+DROP_CFG = dict(CFG, gi_bounces=2, refr_capacity=0.01, gi_capacity=0.25,
+                tir_head_trips=1)
+DROP_LANES, DROP_KEY = 4096, 6
 
 
 def lanes(width: int, height: int, n: int = LANES):
@@ -68,12 +86,13 @@ def main(path: str) -> None:
     from __graft_entry__ import _tiny_scene
     from bhraytracer_tpu.config import RenderConfig
     from bhraytracer_tpu.models.pathtracer import _render_chunk
+    from bhraytracer_tpu.parallel.sharding import _apply_params
     from bhraytracer_tpu.ops.camera import from_scene_camera
     from bhraytracer_tpu.parallel.sharding import (
-        _apply_params,
         make_mesh,
         render_image_distributed,
         render_radiance_sharded,
+        train_step_sharded,
         trainable_params,
     )
 
@@ -105,37 +124,33 @@ def main(path: str) -> None:
             pack, icam, RenderConfig(**IMAGE_CFG), make_mesh(2),
             seed=IMAGE_SEED)
 
+    params = trainable_params(pack, cam_p)
+    tgt, tkey = jnp.asarray(target()), jax.random.PRNGKey(KEY_TRAIN)
+
     def grads():
-        params = trainable_params(pack, cam_p)
-        tgt = jnp.asarray(target())
-
-        @jax.jit
-        def shard_vg(p, px_s, py_s, t_s, k):
-            def loss(p_):
-                pk, cm = _apply_params(pack, cam_p, p_)
-                rad, _, _ = _render_chunk(pk, cfg, cm, w, h, px_s, py_s, k)
-                return jnp.sum((rad - t_s) ** 2) / (3 * LANES)
-
-            return jax.value_and_grad(loss)(p)
-
-        shard = LANES // 2
-        key = jax.random.PRNGKey(KEY_TRAIN)
-        loss, total = 0.0, None
-        for r in range(2):
-            sl = slice(r * shard, (r + 1) * shard)
-            lv, g = shard_vg(params, px[sl], py[sl], tgt[sl],
-                             jax.random.fold_in(key, r * shard))
-            loss = loss + lv
-            total = g if total is None else jax.tree.map(jnp.add, total, g)
+        new, _, loss = train_step_sharded(params, None, pack, cfg, cam_p, w,
+                                          h, px, py, tgt, tkey, make_mesh(2),
+                                          lr=GRAD_LR)
         out["loss"] = np.asarray(loss)
         for k, v in params.items():
             out[f"param/{k}"] = np.asarray(v)
-        for k, g in total.items():
-            out[f"grad/{k}"] = np.asarray(g)
+            out[f"grad/{k}"] = ((np.asarray(v, np.float64)
+                                 - np.asarray(new[k], np.float64)) / GRAD_LR)
+
+    def value_and_grad():
+        def loss(p):
+            pk, cm = _apply_params(pack, cam_p, p)
+            rad, _, _ = _render_chunk(pk, cfg, cm, w, h, px, py, tkey)
+            return jnp.mean((rad - tgt) ** 2)
+
+        lv, g = jax.jit(jax.value_and_grad(loss))(params)
+        out["vg_loss"] = np.asarray(lv)
+        out.update({f"vg_grad/{k}": np.asarray(v) for k, v in g.items()})
 
     # The programs compile side by side (XLA releases the GIL).
-    with ThreadPoolExecutor(6) as ex:
-        for f in [ex.submit(grads), ex.submit(image),
+    with ThreadPoolExecutor(4) as ex:
+        for f in [ex.submit(grads), ex.submit(value_and_grad),
+                  ex.submit(image),
                   *(ex.submit(fn, n) for n in WORLDS
                     for fn in (sharded, single))]:
             f.result()

@@ -98,7 +98,7 @@ def test_random_weights_carried_across(tmp_path):
     jmodel, jparams = JD.init_denoiser(jax.random.PRNGKey(3))
     path = str(tmp_path / "w.npz")
     JD.save_weights(jparams, path)
-    model = D.load_weights(path)
+    model = D.load_weights(path, "cpu")
     assert model.aux_channels == 0 and model.features == (16, 32, 64)
     img = _image(2, 21, 26)
     out = D.denoise(model, img).numpy()
@@ -170,7 +170,7 @@ def test_weights_round_trip(tmp_path):
                             features=(8, 16, 24))
     path = str(tmp_path / "w.npz")
     D.save_weights(model, path)
-    back = D.load_weights(path)
+    back = D.load_weights(path, "cpu")
     assert (back.features, back.aux_channels) == ((8, 16, 24), 6)
     for a, b in zip(model.convs, back.convs):
         assert torch.equal(a.weight, b.weight) and torch.equal(a.bias, b.bias)

@@ -71,3 +71,30 @@ def test_batched_keys_match_one_by_one():
         ju = np.asarray(jax.random.uniform(jax.random.fold_in(jk, tag), (257,)))
         np.testing.assert_array_equal(batch[row].view(np.uint32),
                                       ju.view(np.uint32))
+
+
+def test_row_draws_match_the_table():
+    """uniform_rows draws given rows of a table from their counters alone:
+    bit for bit jax.random.uniform(key, (N, k))[rows] and uniform(key,
+    (N, k))[rows], and for a key batch, the columns `rows` of each key's
+    (N,) draw (rows in any order, repeated, none)."""
+    jk = jax.random.fold_in(jax.random.PRNGKey(5), 101)
+    tk = rng.fold_in(rng.prng_key(5), 101)
+    rows = np.array([977, 0, 5, 5, 512, 999, 1], np.int64)
+    tr = torch.from_numpy(rows)
+    for k in (13, 2):
+        ju = np.asarray(jax.random.uniform(jk, (1000, k)))[rows]
+        got = rng.uniform_rows(tk, tr, k).numpy()
+        np.testing.assert_array_equal(got.view(np.uint32), ju.view(np.uint32))
+        np.testing.assert_array_equal(
+            got.view(np.uint32),
+            rng.uniform(tk, (1000, k))[tr].numpy().view(np.uint32))
+    tags = torch.arange(20, 26)
+    batch = rng.uniform_rows(rng.fold_in(tk, tags), tr).numpy()
+    assert batch.shape == (6, rows.shape[0])
+    for row, tag in enumerate(tags.tolist()):
+        ju = np.asarray(jax.random.uniform(jax.random.fold_in(jk, tag),
+                                           (1000,)))[rows]
+        np.testing.assert_array_equal(batch[row].view(np.uint32),
+                                      ju.view(np.uint32))
+    assert rng.uniform_rows(tk, tr[:0], 13).shape == (0, 13)

@@ -111,3 +111,24 @@ def test_scenes_default_to_the_card():
         with pytest.raises(RuntimeError, match="CUDA"):
             tiny_scene()
     assert tiny_scene(device="cpu")[0].device.type == "cpu"
+
+
+def test_camera_and_weights_default_to_the_card(tmp_path):
+    """from_scene_camera and the denoiser's load_weights take the card by
+    default too, as the scenes do, and raise without one."""
+    from bhraytracer_tpu_torch.models import denoiser as D
+    from bhraytracer_tpu_torch.ops.camera import from_scene_camera
+
+    _, cam = tiny_scene(device="cpu")
+    path = str(tmp_path / "w.npz")
+    D.save_weights(D.init_denoiser(torch.Generator().manual_seed(0)), path)
+    if torch.cuda.is_available():
+        assert from_scene_camera(cam).pos.device.type == "cuda"
+        assert next(D.load_weights(path).parameters()).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            from_scene_camera(cam)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            D.load_weights(path)
+    assert from_scene_camera(cam, "cpu").pos.device.type == "cpu"
+    assert next(D.load_weights(path, "cpu").parameters()).device.type == "cpu"
